@@ -1,0 +1,22 @@
+"""gemma3-4b [dense] — 34L d_model=2560 8H (GQA kv=4) d_ff=10240 vocab=262144.
+
+5:1 local:global sliding-window attention, 128k context.
+[hf:google/gemma-3-1b-pt; unverified]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="gemma3-4b",
+    family="dense",
+    num_layers=34,
+    d_model=2560,
+    num_heads=8,
+    num_kv_heads=4,
+    head_dim=256,
+    d_ff=10240,
+    vocab_size=262144,
+    sliding_window=1024,
+    global_every=6,            # 5 local : 1 global
+    rope_theta=1_000_000.0,
+    source="[hf:google/gemma-3-1b-pt; unverified]",
+))
