@@ -7,14 +7,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32
    off for the float32 comparisons;
-2. build: compile every kernel of the serve path from ``src/repro_torch/
-   kernels/csrc`` into ``build/kernels`` and print the build seconds;
-3. kernels: hold each kernel against its plain PyTorch version on the card;
+2. build: compile every kernel of the serve paths from ``src/repro_torch/
+   kernels/csrc`` into ``build/kernels`` (one nvcc per source, all started
+   together) and print the build seconds and ptxas's register lines;
+3. kernels: hold each kernel (K1 flash attention, K2 SSD scan) against its
+   plain PyTorch version on the card;
 4. serve: ``repro_torch.launch.serve`` on internlm2-1.8b at full width
    (24 layers, seeded random bf16 weights), batch 4, prompt 1024, 32 new
    tokens, flash prefill; count the kernel launches of that run, check the
    logits, prefill->decode consistency, and flash against dot prefill;
-5. times: kernel, plain version, library call and serve times, as JSON.
+5. serve, SSM: the same entry point on mamba2-1.3b at full width (48
+   layers), batch 4, prompt 1024, 32 new tokens; every prefill layer's SSD
+   goes through K2; count the launches, check the tokens, the logits and
+   prefill->decode consistency (K2 prefill against the plain decode
+   recurrence);
+6. times: kernel, plain version, library call and serve times, as JSON.
 
 The last line of standard output is the device line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
@@ -41,6 +48,10 @@ SERVE_ARGS = ["--arch", "internlm2-1.8b", "--batch", "4", "--prompt-len", "1024"
               "--gen", "32", "--attention-impl", "flash", "--kv-dtype", "bfloat16",
               "--seed", "0", "--device", "cuda"]
 SERVE_SHAPE = dict(B=4, Sq=1024, Skv=1024, H=16, K=8, hd=128)   # internlm2-1.8b
+SSM_SERVE_ARGS = ["--arch", "mamba2-1.3b", "--batch", "4", "--prompt-len", "1024",
+                  "--gen", "32", "--seed", "0", "--device", "cuda"]
+SSM_SERVE_SHAPE = dict(B=4, S=1024, H=64, G=1, P=64, N=128)     # mamba2-1.3b
+GEN = 32
 
 
 def fail(msg: str):
@@ -73,13 +84,19 @@ def check_device():
 
 
 def build_kernels():
+    """Build every kernel source at once (one nvcc each); seconds by name."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
-    path, seconds = build.build("flash_attention")
-    log(f"built {path.relative_to(ROOT)} in {seconds:.1f} s")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    return seconds
+    names = ("flash_attention", "ssd_scan")
+    with ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build.build, name) for name in names}
+        built = {name: f.result() for name, f in futures.items()}
+    for name, (path, seconds) in built.items():
+        log(f"built {path.relative_to(ROOT)} in {seconds:.1f} s")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+    return {name: seconds for name, (_, seconds) in built.items()}
 
 
 def _qkv(B, Sq, Skv, H, K, hd, dtype, seed):
@@ -138,21 +155,120 @@ def check_k1():
     return serve_err
 
 
+def _serve_counted(args):
+    """Drive ``serve.run(args)`` with every kernel's launch count set to 0
+    just before and read just after; returns (result, {kernel: launches})."""
+    from repro_torch.kernels.flash_attention import flash_attention_hmajor
+    from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
+    from repro_torch.launch import serve
+    wrappers = {"K1": flash_attention_hmajor, "K2": ssd_scan_hmajor}
+    for w in wrappers.values():
+        w.launches = 0
+    res = serve.run(args)
+    return res, {k: w.launches for k, w in wrappers.items()}
+
+
+def _ssd_inputs(B, S, H, G, P, N, dtype, seed, dt_dtype=None, serve=False):
+    """Head-major K2 inputs on the card.  The test cases draw them as
+    tests/test_kernels.py:66-101 does; ``serve`` draws dt in the model's
+    range (softplus of N(0,1) - 4.6) with A = -1 (``a_log`` = 0)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device="cuda", dtype=torch.float32)
+    x = mk(B, H, S, P).to(dtype)
+    if serve:
+        dt = F.softplus(mk(B, H, S) - 4.6)
+        A = -torch.ones(H, device="cuda")
+    else:
+        dt = F.softplus(mk(B, H, S))
+        A = -torch.exp(mk(H) * 0.5)
+    Bi = (mk(B, G, S, N) * 0.5).to(dtype)
+    Ci = (mk(B, G, S, N) * 0.5).to(dtype)
+    return x, dt.to(dt_dtype or torch.float32), A, Bi, Ci
+
+
+def check_k2():
+    """K2 against its plain version on the card (and against the step-by-step
+    ``ssd_ref`` on the f32 cases); returns the serve-shape error."""
+    import torch
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []   # (name, (B, S, H, G, P, N), chunk, dtype, dt dtype, h0, tolerance)
+    for shape, chunk in [((1, 64, 4, 1, 32, 16), 16), ((2, 37, 4, 2, 16, 32), 16),
+                         ((1, 128, 2, 1, 64, 128), 32), ((1, 96, 8, 4, 16, 16), 48)]:
+        cases.append((f"f32 {shape} chunk={chunk}", shape, chunk, f32, f32, False, 1e-4))
+    cases.append(("bf16 (1,64,2,1,32,16) dt bf16", (1, 64, 2, 1, 32, 16), 16, bf16, bf16,
+                  False, 5e-2))
+    cases.append(("f32 (2,100,4,2,32,64) h0", (2, 100, 4, 2, 32, 64), 32, f32, f32, True, 1e-4))
+    s = SSM_SERVE_SHAPE
+    cases.append(("bf16 serve shape, dt f32", (s["B"], s["S"], s["H"], s["G"], s["P"], s["N"]),
+                  256, bf16, f32, False, 5e-2))
+
+    serve_err = None
+    for i, (name, (B, S, H, G, P, N), chunk, dtype, dt_dtype, with_h0, tol) in enumerate(cases):
+        x, dt, A, Bi, Ci = _ssd_inputs(B, S, H, G, P, N, dtype, seed=100 + i,
+                                       dt_dtype=dt_dtype, serve="serve" in name)
+        h0 = None
+        if with_h0:
+            g = torch.Generator(device="cuda").manual_seed(200 + i)
+            h0 = torch.randn((B, H, P, N), generator=g, device="cuda") * 0.5
+        y, st = ssd_scan_hmajor(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        refs = {"plain": ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)}
+        if dtype == f32:
+            refs["ssd_ref"] = ssd_ref(x, dt, A, Bi, Ci, h0=h0)
+        if y.dtype != dtype or y.shape != x.shape or st.dtype != f32 or st.shape != (B, H, P, N):
+            fail(f"K2 {name}: got y {y.dtype} {tuple(y.shape)}, state {st.dtype} "
+                 f"{tuple(st.shape)}")
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+            fail(f"K2 {name}: output is not finite")
+        for ref_name, (yr, sr) in refs.items():
+            errs = []
+            for a, b in ((y.float(), yr.float()), (st, sr)):
+                err = (a - b).abs()
+                errs.append((float(err.max()), int((err > tol + tol * b.abs()).sum())))
+            bad = errs[0][1] + errs[1][1]
+            log(f"K2 {name} vs {ref_name}: max_abs_err y {errs[0][0]:.3e} state "
+                f"{errs[1][0]:.3e} (atol=rtol={tol}) "
+                f"{'ok' if bad == 0 else f'{bad} entries out of tolerance'}")
+            if bad:
+                fail(f"K2 disagrees with {ref_name} on {name}")
+            if "serve" in name:
+                serve_err = max(errs[0][0], errs[1][0])
+    return serve_err
+
+
 def run_serve():
     """The port's main path, with the kernel launch counts read around it."""
-    from repro_torch.kernels.flash_attention import flash_attention_hmajor
-    from repro_torch.launch import serve
-    flash_attention_hmajor.launches = 0
-    res = serve.run(SERVE_ARGS)
-    launches = flash_attention_hmajor.launches
+    res, counts = _serve_counted(SERVE_ARGS)
+    launches = counts["K1"]
     cfg = res.lm.cfg
     log(f"serve: {cfg.name} L={cfg.num_layers} D={cfg.d_model} H={cfg.num_heads} "
         f"K={cfg.num_kv_heads} hd={cfg.head_dim} F={cfg.d_ff} V={cfg.vocab_size}: "
         f"prefill {res.prefill_s*1e3:.1f} ms, decode "
-        f"{res.decode_s/31*1e3:.2f} ms/token, K1 launches {launches}")
-    if launches != cfg.num_layers:
-        fail(f"K1 launched {launches} times in the serve run, want {cfg.num_layers} "
-             "(one per layer of the prefill)")
+        f"{res.decode_s/(GEN-1)*1e3:.2f} ms/token, launches {counts}")
+    if launches != cfg.num_layers or counts["K2"] != 0:
+        fail(f"launches {counts} in the internlm2 serve run, want K1 {cfg.num_layers} "
+             "(one per layer of the prefill) and K2 0")
+    return res, launches
+
+
+def run_ssm_serve():
+    """The SSM serve path: K2 once per prefill layer, none in decode."""
+    res, counts = _serve_counted(SSM_SERVE_ARGS)
+    launches = counts["K2"]
+    cfg = res.lm.cfg
+    s = cfg.ssm
+    log(f"serve: {cfg.name} L={cfg.num_layers} D={cfg.d_model} "
+        f"d_inner={s.d_inner(cfg.d_model)} heads={s.n_heads(cfg.d_model)} P={s.head_dim} "
+        f"N={s.d_state} G={s.n_groups} V={cfg.vocab_size}: prefill "
+        f"{res.prefill_s*1e3:.1f} ms, decode {res.decode_s/(GEN-1)*1e3:.2f} ms/token, "
+        f"launches {counts}")
+    if launches != cfg.num_layers or counts["K1"] != 0:
+        fail(f"launches {counts} in the mamba2 serve run, want K2 {cfg.num_layers} "
+             "(one per layer of the prefill, none in decode) and K1 0")
     return res, launches
 
 
@@ -160,12 +276,12 @@ def _consistency(lm, prompts, nxt, kv_dtype):
     """rel. max difference of the last logits: full forward against prefill
     followed by one decode step (tests/test_models_smoke.py:58-93)."""
     import torch
-    import torch.nn.functional as F
+    from repro_torch.launch.serve import grow_cache
     cfg = lm.cfg
     S = prompts.shape[1]
     full = lm.forward(torch.cat([prompts, nxt], 1), mode="train")["logits"]
     pf = lm.forward(prompts, mode="prefill", kv_dtype=kv_dtype)
-    cache = {n: F.pad(x, [0, 0] * (x.dim() - 3) + [0, S]) for n, x in pf["cache"].items()}
+    cache = grow_cache(cfg, pf["cache"], 2 * S)
     logits_d, _ = lm.decode(cache, nxt, S)
     a = full[:, -1, :cfg.vocab_size].float()
     b = logits_d[:, 0, :cfg.vocab_size].float()
@@ -193,6 +309,17 @@ def _close(d):
     return d["mean_abs"] < 0.05 and d["frac_lt_025"] > 0.99 and d["argmax_agree"] > 0.95
 
 
+def _check_tokens(res):
+    import torch
+    cfg = res.lm.cfg
+    if (res.tokens.shape != (4, GEN) or res.tokens.min() < 0
+            or res.tokens.max() >= cfg.vocab_size):
+        fail(f"{cfg.name} serve tokens: shape {res.tokens.shape}, range "
+             f"[{res.tokens.min()}, {res.tokens.max()}]")
+    if not torch.isfinite(res.prefill_logits[..., :cfg.vocab_size].float()).all():
+        fail(f"{cfg.name} prefill logits are not finite")
+
+
 def check_serve(res, check_layers=1):
     """Checks of the serve run's output.
 
@@ -208,11 +335,7 @@ def check_serve(res, check_layers=1):
     from repro_torch.models.lm import LM
     lm, prompts = res.lm, res.prompts
     cfg = lm.cfg
-    if res.tokens.shape != (4, 32) or res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
-        fail(f"serve tokens: shape {res.tokens.shape}, range "
-             f"[{res.tokens.min()}, {res.tokens.max()}]")
-    if not torch.isfinite(res.prefill_logits[..., :cfg.vocab_size].float()).all():
-        fail("prefill logits are not finite")
+    _check_tokens(res)
 
     g = torch.Generator(device="cuda").manual_seed(5)
     nxt = torch.randint(0, cfg.vocab_size, (prompts.shape[0], 1), generator=g, device="cuda")
@@ -235,6 +358,35 @@ def check_serve(res, check_layers=1):
     for key in ("bf16_flash_vs_dot_train", "f32_flash_vs_dot_prefill"):
         if not _close(cut[key]):
             fail(f"{key} at {check_layers} layers out of bounds: {cut[key]}")
+    return {"full_depth": full, f"{check_layers}_layers": cut}
+
+
+def check_ssm_serve(res, check_layers=1):
+    """Checks of the mamba2 serve run's output.  Prefill runs K2 and decode
+    the plain recurrence (``ssd_decode_step``), so prefill->decode
+    consistency is the model-level check of K2: held at rel < 0.08 on the
+    same width cut to ``check_layers`` layers, in bf16 and in f32, and
+    reported at full depth."""
+    import torch
+    from repro_torch.models.lm import LM
+    lm, prompts = res.lm, res.prompts
+    cfg = lm.cfg
+    _check_tokens(res)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    nxt = torch.randint(0, cfg.vocab_size, (prompts.shape[0], 1), generator=g, device="cuda")
+    full, cut = {}, {}
+    with torch.inference_mode():
+        full["bf16_prefill_decode_rel"] = _consistency(lm, prompts, nxt, "bfloat16")
+        short = LM(dataclasses.replace(cfg, num_layers=check_layers), device="cuda", seed=0)
+        cut["bf16_prefill_decode_rel"] = _consistency(short, prompts, nxt, "bfloat16")
+        short.float()
+        cut["f32_prefill_decode_rel"] = _consistency(short, prompts, nxt, "float32")
+        del short
+    log(f"mamba2 serve checks at {cfg.num_layers} layers (reported): {json.dumps(full)}")
+    log(f"mamba2 serve checks at {check_layers} layers (held): {json.dumps(cut)}")
+    for key in ("bf16_prefill_decode_rel", "f32_prefill_decode_rel"):
+        if not cut[key] < 0.08:
+            fail(f"mamba2 {key}={cut[key]:.4f} at {check_layers} layers (limit 0.08)")
     return {"full_depth": full, f"{check_layers}_layers": cut}
 
 
@@ -292,6 +444,50 @@ def time_k1():
                 flops=flops, bytes=nbytes)
 
 
+def time_k2():
+    from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
+    import torch
+    s = SSM_SERVE_SHAPE
+    B, S, H, G, P, N = s["B"], s["S"], s["H"], s["G"], s["P"], s["N"]
+    x, dt, A, Bi, Ci = _ssd_inputs(B, S, H, G, P, N, torch.bfloat16, seed=98, serve=True)
+    kernel_ms = _time_ms(lambda: ssd_scan_hmajor(x, dt, A, Bi, Ci))
+    plain_ms = _time_ms(lambda: ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=256))
+    # least time for the same work: bytes read and written once; operations
+    # of the chunk-256 block decomposition (C B^T once per group and chunk,
+    # the causal half of att @ x, C @ state^T and the state update)
+    Q = 256
+    nc = -(-S // Q)
+    flops = (2 * Q * Q * N * B * G * nc                    # C B^T
+             + 2 * (Q * (Q + 1) // 2) * P * B * H * nc     # att @ x, causal half
+             + 2 * Q * N * P * B * H * nc                  # C @ state^T
+             + 2 * P * N * Q * B * H * nc)                 # state update
+    nbytes = (x.numel() * x.element_size() * 2             # x in, y out
+              + dt.numel() * dt.element_size() + A.numel() * A.element_size()
+              + (Bi.numel() + Ci.numel()) * Bi.element_size()
+              + B * H * P * N * 4)                          # final state, f32
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def _serve_times(res, prefill_warm_ms, checks):
+    cfg = res.lm.cfg
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": 4, "prompt_len": 1024,
+            "gen": GEN, "prefill_ms": res.prefill_s * 1e3,
+            "prefill_warm_ms": prefill_warm_ms,
+            "decode_ms_per_token": res.decode_s / (GEN - 1) * 1e3,
+            "tok_per_s": 4 * (GEN - 1) / res.decode_s, "checks": checks}
+
+
+def _kernel_line(name, source, replaces, launches, max_abs_err, t):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err,
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
 def main():
     t_start = time.perf_counter()
     card = check_device()
@@ -299,40 +495,40 @@ def main():
     import torch
 
     build_s = build_kernels()
-    serve_err = check_k1()
-    res, launches = run_serve()
+    k1_err = check_k1()
+    k2_err = check_k2()
+
+    res, k1_launches = run_serve()
     checks = check_serve(res)
-    prefill_warm_ms = time_prefill(res.lm, res.prompts)
+    serve = _serve_times(res, time_prefill(res.lm, res.prompts), checks)
+    del res
     k1 = time_k1()
-    gen = 32
+
+    torch.cuda.empty_cache()
+    res, k2_launches = run_ssm_serve()
+    checks = check_ssm_serve(res)
+    ssm_serve = _serve_times(res, time_prefill(res.lm, res.prompts), checks)
+    del res
+    k2 = time_k2()
+
     times = {
         "card": card,
         "build_s": build_s,
         "k1_serve_shape": {k: k1[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                               "bound_by", "flops", "bytes")},
-        "k1_bound_us": k1["bound_ms"] * 1e3,
-        "serve": {"arch": "internlm2-1.8b", "batch": 4, "prompt_len": 1024, "gen": gen,
-                  "prefill_ms": res.prefill_s * 1e3,
-                  "prefill_warm_ms": prefill_warm_ms,
-                  "decode_ms_per_token": res.decode_s / (gen - 1) * 1e3,
-                  "tok_per_s": 4 * (gen - 1) / res.decode_s},
-        "checks": checks,
+        "k2_serve_shape": {k: k2[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by", "flops", "bytes")},
+        "serve": serve,
+        "ssm_serve": ssm_serve,
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"times": times}))
-    print(json.dumps({"kernels": [{
-        "name": "K1 flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:32",
-        "launches": launches,
-        "max_abs_err": serve_err,
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-    }]}))
+    print(json.dumps({"kernels": [
+        _kernel_line("K1 flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:32", k1_launches, k1_err, k1),
+        _kernel_line("K2 ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:31", k2_launches, k2_err, k2),
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,10 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --batch 4 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --batch 4 --prompt-len 1024 --gen 32
 
-Runs on the CUDA card unless ``--device cpu`` is given; with
-``--attention-impl flash`` (the default) the prefill's attention goes
-through the hand-written K1 kernel.  The decode steps use the plain path,
+Runs on the CUDA card unless ``--device cpu`` is given.  For the dense
+family with ``--attention-impl flash`` (the default) the prefill's
+attention goes through the hand-written K1 kernel; for the SSM family
+(mamba2) every prefill layer's SSD goes through K2, and
+``--attention-impl`` has no effect.  The decode steps use the plain path,
 as in the JAX package.
 """
 from __future__ import annotations
@@ -49,6 +53,17 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def grow_cache(cfg, cache, max_len: int):
+    """Grow a prefill cache to ``max_len`` positions for decoding: the KV
+    entries of the dense family (k/v [L,B,S,K,hd], scales [L,B,S,K]) are
+    zero-padded along the sequence axis; the SSM family's ``ssm`` and
+    ``conv`` states have no sequence axis and stay as they are."""
+    if cfg.family == "ssm":
+        return cache
+    return {name: F.pad(x, [0, 0] * (x.dim() - 3) + [0, max_len - x.shape[2]])
+            for name, x in cache.items()}
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -72,9 +87,7 @@ def run(argv=None) -> ServeResult:
         _sync(device)
         t0 = time.perf_counter()
         out = lm.forward(prompts, mode="prefill", kv_dtype=args.kv_dtype)
-        # grow the KV cache (k/v [L,B,S,K,hd], scales [L,B,S,K]) to max_len
-        cache = {name: F.pad(x, [0, 0] * (x.dim() - 3) + [0, max_len - S])
-                 for name, x in out["cache"].items()}
+        cache = grow_cache(cfg, out["cache"], max_len)
         _sync(device)
         t_prefill = time.perf_counter() - t0
 

@@ -38,7 +38,7 @@ def _expect_keys(tree: dict, keys, where: str):
 
 
 def params_from_jax(lm: LM, tree: dict) -> LM:
-    """Copy the JAX param tree of a dense LM into ``lm``; returns ``lm``."""
+    """Copy the JAX param tree of a dense or SSM LM into ``lm``; returns ``lm``."""
     top = ["embed", "final_norm", "blocks"] + ([] if lm.cfg.tie_embeddings else ["lm_head"])
     _expect_keys(tree, top, "params")
     _copy(lm.embed, tree["embed"], "embed")
@@ -46,16 +46,19 @@ def params_from_jax(lm: LM, tree: dict) -> LM:
     if lm.lm_head is not None:
         _copy(lm.lm_head, tree["lm_head"], "lm_head")
     blocks = tree["blocks"]
-    _expect_keys(blocks, ["ln1", "ln2", "attn", "mlp"], "blocks")
-    n_layers = np.asarray(blocks["ln1"]).shape[0]
+    # per-layer norms and parameter groups, as the port's blocks name them
+    norms, groups = (["ln"], ["mamba"]) if lm.cfg.family == "ssm" else \
+        (["ln1", "ln2"], ["attn", "mlp"])
+    _expect_keys(blocks, norms + groups, "blocks")
+    n_layers = np.asarray(blocks[norms[0]]).shape[0]
     if n_layers != len(lm.blocks):
         raise ValueError(f"JAX has {n_layers} layers, the port {len(lm.blocks)}")
-    for group in ("attn", "mlp"):
+    for group in groups:
         _expect_keys(blocks[group], getattr(lm.blocks[0], group).keys(), f"blocks.{group}")
     for i, blk in enumerate(lm.blocks):
-        _copy(blk.ln1, np.asarray(blocks["ln1"])[i], f"blocks.ln1[{i}]")
-        _copy(blk.ln2, np.asarray(blocks["ln2"])[i], f"blocks.ln2[{i}]")
-        for group in ("attn", "mlp"):
+        for norm in norms:
+            _copy(getattr(blk, norm), np.asarray(blocks[norm])[i], f"blocks.{norm}[{i}]")
+        for group in groups:
             params = getattr(blk, group)
             for name, leaf in blocks[group].items():
                 _copy(params[name], np.asarray(leaf)[i], f"blocks.{group}.{name}[{i}]")

@@ -44,10 +44,18 @@ def init_param(generator: torch.Generator, spec: ParamSpec, device) -> torch.Ten
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ssm_a":
+        # A in [-16, -1]: negative per-head decay rates
+        lo, hi = 1.0, 16.0
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32, device=device)
+        return (-(lo + (hi - lo) * u)).to(dtype)
+    if spec.init == "ssm_dt":
+        # dt_bias = softplus^-1(dt), log(dt) ~ uniform(log 1e-3, log 1e-1)
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32, device=device)
+        dt = torch.exp(math.log(1e-3) + (math.log(1e-1) - math.log(1e-3)) * u)
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     if spec.init != "normal":
-        raise NotImplementedError(
-            f"init {spec.init!r} comes with the SSM family (ROADMAP.md, "
-            "modules still to port: the SSM family)")
+        raise ValueError(f"unknown init {spec.init!r}")
     # fan-in normal init, as the JAX package draws it
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     scale = 1.0 / math.sqrt(max(fan_in, 1))

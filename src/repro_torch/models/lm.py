@@ -1,4 +1,5 @@
-"""The language model, dense family: the counterpart of ``repro.models.lm``.
+"""The language model, dense and SSM families: the counterpart of
+``repro.models.lm``.
 
 One :class:`LM` module = (ModelConfig, ShardingPlan) on one device.  It
 exposes:
@@ -20,8 +21,11 @@ Design notes
   [L,B,S,K]) and a decode step writes it in place with ``index_copy_``,
   where JAX returns an updated copy (``dynamic_update_slice`` on a donated
   buffer).
-* Other families (MoE, SSM, hybrid, enc-dec, vlm) are not ported yet and
-  raise ``NotImplementedError``.
+* The SSM family (mamba2) runs one Mamba-2 mixer per layer
+  (``models/ssm.py``); its decode cache is ``ssm`` [L,B,H,P,N] and ``conv``
+  [L,B,W-1,di+2GN], both float32, which a decode step also writes in place.
+* Other families (MoE, hybrid, enc-dec, vlm) are not ported yet and raise
+  ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, apply_rope, cross_entropy_loss,
                                        init_tree, rms_norm, swiglu, torch_dtype)
 from repro_torch.sharding.plan import ShardingPlan, make_plan
@@ -40,7 +45,6 @@ from repro_torch.sharding.plan import ShardingPlan, make_plan
 # ROADMAP.md items ("Modules still to port") that bring the other families
 _FAMILY_ITEMS = {
     "moe": "MoE (moe.py)",
-    "ssm": "the SSM family serving with ssd_chunked, ops.ssd_scan and K2",
     "hybrid": "the other families: hybrid",
     "encdec": "the other families: encdec",
     "vlm": "the other families: vlm",
@@ -87,6 +91,31 @@ def _mlp_specs(cfg):
     }
 
 
+def _ssm_specs(cfg):
+    s, D = cfg.ssm, cfg.d_model
+    di, nh = s.d_inner(D), s.n_heads(D)
+    GN = s.n_groups * s.d_state
+    W = s.conv_width
+    return {
+        "w_z": ParamSpec((D, di), ("embed", "d_inner")),
+        "w_x": ParamSpec((D, di), ("embed", "d_inner")),
+        "w_B": ParamSpec((D, GN), ("embed", "state")),
+        "w_C": ParamSpec((D, GN), ("embed", "state")),
+        "w_dt": ParamSpec((D, nh), ("embed", "ssm_heads")),
+        "dt_bias": ParamSpec((nh,), ("ssm_heads",), init="ssm_dt"),
+        "a_log": ParamSpec((nh,), ("ssm_heads",), init="zeros"),
+        "d_skip": ParamSpec((nh,), ("ssm_heads",), init="ones"),
+        "conv_w": ParamSpec((W, di), ("conv", "d_inner")),
+        "conv_b": ParamSpec((di,), ("d_inner",), init="zeros"),
+        "conv_wB": ParamSpec((W, GN), ("conv", "state")),
+        "conv_bB": ParamSpec((GN,), ("state",), init="zeros"),
+        "conv_wC": ParamSpec((W, GN), ("conv", "state")),
+        "conv_bC": ParamSpec((GN,), ("state",), init="zeros"),
+        "norm": ParamSpec((di,), ("d_inner",), init="zeros"),
+        "w_out": ParamSpec((di, D), ("d_inner", "embed")),
+    }
+
+
 def _quantize_kv(x):
     """x [...,hd] -> (int8, scale[...])."""
     scale = torch.amax(torch.abs(x.float()), dim=-1) / 127.0
@@ -111,6 +140,15 @@ class Block(nn.Module):
         self.mlp = _params(tree["mlp"])
 
 
+class SSMBlock(nn.Module):
+    """One Mamba-2 layer: pre-norm mixer with a residual."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self.ln = nn.Parameter(tree["ln"], requires_grad=False)
+        self.mamba = _params(tree["mamba"])
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, plan: Optional[ShardingPlan] = None, *,
                  device="cuda", seed: int = 0):
@@ -118,8 +156,8 @@ class LM(nn.Module):
         ``torch.Generator`` seeded with ``seed`` (fan-in normal, as the JAX
         init draws them; the numbers differ from jax.random's)."""
         super().__init__()
-        if cfg.family != "dense" or any(x is not None for x in (
-                cfg.moe, cfg.ssm, cfg.hybrid, cfg.encoder)) or cfg.num_image_tokens:
+        if cfg.family not in ("dense", "ssm") or any(x is not None for x in (
+                cfg.moe, cfg.hybrid, cfg.encoder)) or cfg.num_image_tokens:
             fam = cfg.family if cfg.family in _FAMILY_ITEMS else "moe"
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; ROADMAP.md "
@@ -133,7 +171,8 @@ class LM(nn.Module):
         self.final_norm = nn.Parameter(tree["final_norm"], requires_grad=False)
         self.lm_head = (None if cfg.tie_embeddings else
                         nn.Parameter(tree["lm_head"], requires_grad=False))
-        self.blocks = nn.ModuleList(Block(t) for t in tree["blocks"])
+        block = SSMBlock if cfg.family == "ssm" else Block
+        self.blocks = nn.ModuleList(block(t) for t in tree["blocks"])
 
     @property
     def device(self) -> torch.device:
@@ -149,8 +188,12 @@ class LM(nn.Module):
         }
         if not cfg.tie_embeddings:
             p["lm_head"] = ParamSpec((D, plan.V), ("embed", "vocab"))
-        p["blocks"] = [{"ln1": _ln(D), "ln2": _ln(D), "attn": _attn_specs(cfg, plan),
-                        "mlp": _mlp_specs(cfg)} for _ in range(cfg.num_layers)]
+        if cfg.family == "ssm":
+            p["blocks"] = [{"ln": _ln(D), "mamba": _ssm_specs(cfg)}
+                           for _ in range(cfg.num_layers)]
+        else:
+            p["blocks"] = [{"ln1": _ln(D), "ln2": _ln(D), "attn": _attn_specs(cfg, plan),
+                            "mlp": _mlp_specs(cfg)} for _ in range(cfg.num_layers)]
         return p
 
     # ------------------------------------------------------------ helpers
@@ -237,7 +280,7 @@ class LM(nn.Module):
         if mode not in ("train", "prefill"):
             raise ValueError(f"unknown mode {mode!r}")
         x = self._embed_inputs(tokens)
-        x, new_cache = self._stack_attn(
+        x, new_cache = self._stack(
             x, prefill_kv_dtype=kv_dtype if mode == "prefill" else None)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         head = self._head()
@@ -267,7 +310,41 @@ class LM(nn.Module):
         x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         return self.plan.act(x, "batch", "seq", "embed")
 
-    # ------------------------------------------------------- layer stack
+    # ------------------------------------------------------- layer stacks
+    def _stack(self, x, cache=None, pos=None, prefill_kv_dtype=None):
+        if self.cfg.family == "ssm":
+            return self._stack_ssm(x, cache=cache, pos=pos,
+                                   want_cache=prefill_kv_dtype is not None)
+        return self._stack_attn(x, cache=cache, pos=pos,
+                                prefill_kv_dtype=prefill_kv_dtype)
+
+    def _stack_ssm(self, x, cache=None, pos=None, want_cache=False):
+        """Mamba-2 layers.  Prefill starts each layer's SSD at a zero state
+        and, with ``want_cache``, emits the final states; decode (``pos``
+        given) steps from ``cache`` and writes the new states into it."""
+        cfg = self.cfg
+        decode = pos is not None
+        new_layers = []
+        for i, blk in enumerate(self.blocks):
+            h0 = conv0 = None
+            if decode:
+                h0, conv0 = cache["ssm"][i], cache["conv"][i]
+            h, (h_new, conv_new) = ssm_mod.mamba_block(
+                rms_norm(x, blk.ln, cfg.norm_eps), blk.mamba, cfg, h0=h0,
+                conv0=conv0, decode=decode)
+            x = x + h
+            if decode:
+                cache["ssm"][i].copy_(h_new)
+                cache["conv"][i].copy_(conv_new)
+            elif want_cache:
+                new_layers.append((h_new, conv_new))
+        if decode:
+            return x, cache
+        if not want_cache:
+            return x, None
+        return x, {"ssm": torch.stack([h for h, _ in new_layers]),
+                   "conv": torch.stack([c for _, c in new_layers])}
+
     def _stack_attn(self, x, cache=None, pos=None, prefill_kv_dtype=None):
         cfg, plan = self.cfg, self.plan
         win, theta = self._layer_windows()
@@ -296,10 +373,10 @@ class LM(nn.Module):
     # -------------------------------------------------------------- decode
     def decode(self, cache, token, pos: int):
         """One serve step.  token [B,1] int; pos int.  Writes the new key and
-        value into ``cache`` in place.  Returns (logits [B,1,V_pad] with the
-        padded vocab masked, cache)."""
+        value (or the new SSM and conv states) into ``cache`` in place.
+        Returns (logits [B,1,V_pad] with the padded vocab masked, cache)."""
         x = self._embed_inputs(token)
-        x, cache = self._stack_attn(x, cache=cache, pos=pos)
+        x, cache = self._stack(x, cache=cache, pos=pos)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         logits = torch.einsum("bsd,dv->bsv", x, self._head())
         return self._mask_vocab(logits), cache
@@ -307,6 +384,14 @@ class LM(nn.Module):
     # ----------------------------------------------------------- caches
     def init_cache(self, batch: int, seq: int, kv_dtype: str = "bfloat16"):
         cfg, plan = self.cfg, self.plan
+        if cfg.family == "ssm":
+            s = cfg.ssm
+            di, GN = s.d_inner(cfg.d_model), s.n_groups * s.d_state
+            L = cfg.num_layers
+            return {"ssm": torch.zeros((L, batch, s.n_heads(cfg.d_model), s.head_dim,
+                                        s.d_state), device=self.device),
+                    "conv": torch.zeros((L, batch, s.conv_width - 1, di + 2 * GN),
+                                        device=self.device)}
         shape = (cfg.num_layers, batch, seq, plan.K, cfg.head_dim)
         dt = torch_dtype(kv_dtype)
         c = {"k": torch.zeros(shape, dtype=dt, device=self.device),

@@ -20,6 +20,7 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert {"repro_torch.launch.serve", "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
             "repro_torch.models.lm", "repro_torch.models.convert"} <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -54,10 +55,11 @@ def test_serve_on_cpu_when_asked(capsys):
     assert [line.split()[0] for line in out] == ["[serve]"] * 3
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen3-moe-235b-a22b", "whisper-medium",
-                                  "llava-next-34b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+                                  "whisper-medium", "llava-next-34b", "jamba-1.5-large-398b"])
 def test_unported_families_name_their_roadmap_item(arch):
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         LM(get_config(arch).reduced(), device="cpu")
+

@@ -1,4 +1,4 @@
-"""K1 on the card against its plain version.
+"""K1 and K2 on the card against their plain versions.
 
 This file needs no jax, so that it also runs on a machine with a CUDA card
 and no jax:
@@ -11,7 +11,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch.nn.functional as F  # noqa: E402
+
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ks  # noqa: E402
+from repro_torch.kernels.ref import ssd_ref  # noqa: E402
 
 
 @pytest.mark.cuda
@@ -49,3 +53,54 @@ def test_k1_raises_on_what_it_does_not_take():
     big = torch.zeros(1, 1, 8, 512, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_hmajor(big, big, big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk,dtype,dt_dtype,with_h0,tol", [
+    ((1, 64, 4, 1, 32, 16), 16, "float32", "float32", False, 1e-4),
+    ((2, 37, 4, 2, 16, 32), 16, "float32", "float32", False, 1e-4),
+    ((1, 128, 2, 1, 64, 128), 32, "float32", "float32", False, 1e-4),
+    ((1, 96, 8, 4, 16, 16), 48, "float32", "float32", False, 1e-4),
+    ((1, 64, 2, 1, 32, 16), 16, "bfloat16", "bfloat16", False, 5e-2),
+    ((2, 100, 4, 2, 32, 64), 32, "float32", "float32", True, 1e-4),
+    ((4, 1024, 64, 1, 64, 128), 256, "bfloat16", "float32", False, 5e-2),   # mamba2 serve
+])
+def test_k2_kernel_matches_plain_on_card(shape, chunk, dtype, dt_dtype, with_h0, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K2 is CUDA C++ with no CPU mode")
+    B, S, H, G, P, N = shape
+    serve = S == 1024
+    g = torch.Generator(device="cuda").manual_seed(7)
+    mk = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    x = mk(B, H, S, P).to(getattr(torch, dtype))
+    dt = F.softplus(mk(B, H, S) - (4.6 if serve else 0.0)).to(getattr(torch, dt_dtype))
+    A = -torch.ones(H, device="cuda") if serve else -torch.exp(mk(H) * 0.5)
+    Bi = (mk(B, G, S, N) * 0.5).to(x.dtype)
+    Ci = (mk(B, G, S, N) * 0.5).to(x.dtype)
+    h0 = mk(B, H, P, N) * 0.5 if with_h0 else None
+    before = ks.ssd_scan_hmajor.launches
+    y, st = ks.ssd_scan_hmajor(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ks.ssd_scan_hmajor.launches == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert st.dtype == torch.float32 and st.shape == (B, H, P, N)
+    refs = [ks.ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)]
+    if dtype == "float32":
+        refs.append(ssd_ref(x, dt, A, Bi, Ci, h0=h0))
+    for yr, sr in refs:
+        torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(st, sr, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_k2_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K2 is CUDA C++ with no CPU mode")
+    x = torch.zeros(1, 2, 8, 16, device="cuda")
+    dt, A = torch.zeros(1, 2, 8, device="cuda"), -torch.ones(2, device="cuda")
+    Bi = torch.zeros(1, 1, 8, 16, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.ssd_scan_hmajor(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bi, Bi)
+    big = torch.zeros(1, 1, 8, 256, device="cuda")
+    with pytest.raises(ValueError, match="d_state"):
+        ks.ssd_scan_hmajor(x, dt, A, big, big)
