@@ -9,19 +9,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    off for the float32 comparisons;
 2. build: compile every kernel of the serve paths from ``src/repro_torch/
    kernels/csrc`` into ``build/kernels`` (one nvcc per source, all started
-   together) and print the build seconds and ptxas's register lines;
+   together) and print the build seconds, ptxas's register lines and each
+   variant's dynamic shared memory and blocks per SM;
 3. kernels: hold each kernel (K1 flash attention, K2 SSD scan) against its
-   plain PyTorch version on the card;
+   plain PyTorch version on the card, every f32 case beside its bf16 twin
+   (bf16 takes the tensor-core variant "tc", f32 the CUDA-core "fma"); at
+   K2's serve shape, split its error into operand rounding (y written in
+   f32; held to half the tolerance) and output rounding, beside the "fma"
+   kernel and the tc kernel on bf16 operands only, on the same inputs;
 4. serve: ``repro_torch.launch.serve`` on internlm2-1.8b at full width
    (24 layers, seeded random bf16 weights), batch 4, prompt 1024, 32 new
-   tokens, flash prefill; count the kernel launches of that run, check the
-   logits, prefill->decode consistency, and flash against dot prefill;
+   tokens, flash prefill; count the kernel launches of that run by variant
+   (24 tensor-core K1), check the logits, prefill->decode consistency, and
+   flash against dot prefill;
 5. serve, SSM: the same entry point on mamba2-1.3b at full width (48
    layers), batch 4, prompt 1024, 32 new tokens; every prefill layer's SSD
-   goes through K2; count the launches, check the tokens, the logits and
-   prefill->decode consistency (K2 prefill against the plain decode
-   recurrence);
-6. times: kernel, plain version, library call and serve times, as JSON.
+   goes through K2; count the launches by variant (48 tensor-core K2, none
+   in decode), check the tokens, the logits and prefill->decode consistency
+   (K2 prefill against the plain decode recurrence);
+6. times: kernel (and, on the same inputs, its CUDA-core variant), plain
+   version, library call and serve times, as JSON.  ``ms`` is the median of
+   single calls, each timed alone (the host's launch work included);
+   ``device_ms`` times calls enqueued back to back, which hides it.
 
 The last line of standard output is the device line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
@@ -94,9 +103,27 @@ def build_kernels():
     for name, (path, seconds) in built.items():
         log(f"built {path.relative_to(ROOT)} in {seconds:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     return {name: seconds for name, (_, seconds) in built.items()}
+
+
+def kernel_occupancy():
+    """Dynamic shared memory and blocks per SM of each kernel variant, at
+    the head dims of the serve shapes and at the largest ones taken."""
+    from repro_torch.kernels import flash_attention, ssd_scan
+    out = {}
+    for key, query, dims in [("K1", flash_attention.occupancy, (128, 256)),
+                             ("K2", ssd_scan.occupancy, (64, 128))]:
+        for variant in ("tc", "fma"):
+            for dim in dims:
+                smem, blocks = query(variant, dim)
+                out[f"{key} {variant} {'hd' if key == 'K1' else 'P'}={dim}"] = {
+                    "smem_bytes": smem, "blocks_per_sm": blocks}
+    for name, o in out.items():
+        log(f"{name}: {o['smem_bytes']} B dynamic shared memory, "
+            f"{o['blocks_per_sm']} blocks per SM")
+    return out
 
 
 def _qkv(B, Sq, Skv, H, K, hd, dtype, seed):
@@ -106,66 +133,86 @@ def _qkv(B, Sq, Skv, H, K, hd, dtype, seed):
     return mk(B, H, Sq, hd), mk(B, K, Skv, hd), mk(B, K, Skv, hd)
 
 
+def _agreement(a, b, tol):
+    """(max |a - b|, the largest share of the tolerance atol = rtol = tol
+    that an entry uses, entries out of tolerance).  The share tells output
+    rounding apart from a real error: at |b| in [8, 16) one bf16 step is
+    0.0625 yet only ~0.1 of the tolerance."""
+    err = (a - b).abs()
+    allowed = tol + tol * b.abs()
+    return float(err.max()), float((err / allowed).max()), int((err > allowed).sum())
+
+
 def check_k1():
-    """K1 against its plain version on the card; returns the serve-shape error."""
+    """K1 against its plain version on the card; returns the serve-shape
+    error and its share of the tolerance."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_hmajor,
-                                                     flash_attention_hmajor_plain)
+                                                     flash_attention_hmajor_plain, k1_variant)
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = []   # (name, shape, dtype, kwargs, tolerance)
+    twins = []   # (name, shape, kwargs): each runs in f32 at 2e-5 and in bf16 at 3e-2
     for shape in [(2, 128, 128, 4, 2, 64), (1, 100, 100, 4, 4, 128), (2, 64, 64, 8, 2, 32),
                   (1, 128, 256, 4, 1, 64), (1, 257, 129, 2, 2, 256)]:
         for causal in (True, False):
-            cases.append((f"f32 {shape} causal={causal}", shape, f32,
-                          dict(causal=causal), 2e-5))
+            twins.append((f"{shape} causal={causal}", shape, dict(causal=causal)))
     for window in (8, 64, 200):
-        cases.append((f"f32 window={window}", (1, 128, 128, 4, 2, 64), f32,
-                      dict(causal=True, window=window), 2e-5))
+        twins.append((f"window={window}", (1, 128, 128, 4, 2, 64),
+                      dict(causal=True, window=window)))
+    twins.append(("ragged windowed GQA hd=96", (2, 300, 300, 8, 2, 96),
+                  dict(causal=True, window=37)))
+    twins.append(("ragged kv_valid hd=16", (2, 77, 200, 4, 2, 16),
+                  dict(causal=False, kv_valid=150)))
+    twins.append(("hd=72", (2, 100, 100, 4, 2, 72), dict(causal=True)))
+    cases = []   # (name, shape, dtype, kwargs, tolerance)
+    for name, shape, kw in twins:
+        cases.append((f"f32 {name}", shape, f32, kw, 2e-5))
+        cases.append((f"bf16 {name}", shape, bf16, kw, 3e-2))
     cases.append(("bf16 (1,128,128,4,4,64)", (1, 128, 128, 4, 4, 64), bf16,
                   dict(causal=True), 3e-2))
-    cases.append(("f32 ragged windowed GQA", (2, 300, 300, 8, 2, 96), f32,
-                  dict(causal=True, window=37), 2e-5))
-    cases.append(("f32 ragged kv_valid hd=16", (2, 77, 200, 4, 2, 16), f32,
-                  dict(causal=False, kv_valid=150), 2e-5))
     s = SERVE_SHAPE
     serve_shape = (s["B"], s["Sq"], s["Skv"], s["H"], s["K"], s["hd"])
     cases.append(("bf16 serve shape", serve_shape, bf16, dict(causal=True), 3e-2))
     cases.append(("bf16 serve shape, peaked scores", serve_shape, bf16, dict(causal=True), 3e-2))
 
-    serve_err = None
+    serve = None
     for i, (name, (B, Sq, Skv, H, K, hd), dtype, kw, tol) in enumerate(cases):
         q, k, v = _qkv(B, Sq, Skv, H, K, hd, dtype, seed=i)
         if "peaked" in name:    # q, k at the std the serve model's init gives them
             q, k = (q.float() * 11.3).to(dtype), (k.float() * 11.3).to(dtype)
+        variant = k1_variant(dtype, hd)
+        before = flash_attention_hmajor.launches_by_variant[variant]
         out = flash_attention_hmajor(q, k, v, **kw)
         torch.cuda.synchronize()
+        if flash_attention_hmajor.launches_by_variant[variant] != before + 1:
+            fail(f"K1 {name}: the {variant} kernel was not the one launched")
         ref = flash_attention_hmajor_plain(q, k, v, **kw)
         if out.dtype != dtype or out.shape != q.shape:
             fail(f"K1 {name}: got {out.dtype} {tuple(out.shape)}")
-        a, b = out.float(), ref.float()
-        err = (a - b).abs()
-        bad = int((err > tol + tol * b.abs()).sum())
-        max_err = float(err.max())
-        log(f"K1 {name}: max_abs_err {max_err:.3e} (atol=rtol={tol}) "
-            f"{'ok' if bad == 0 else f'{bad} entries out of tolerance'}")
+        a = out.float()
+        max_err, share, bad = _agreement(a, ref.float(), tol)
+        log(f"K1 {name} [{variant}]: max_abs_err {max_err:.3e} (atol=rtol={tol}, "
+            f"share {share:.3f}) {'ok' if bad == 0 else f'{bad} entries out of tolerance'}")
         if bad or not torch.isfinite(a).all():
             fail(f"K1 disagrees with its plain version on {name}")
         if name == "bf16 serve shape":
-            serve_err = max_err
-    return serve_err
+            serve = max_err, share
+    return serve
 
 
 def _serve_counted(args):
-    """Drive ``serve.run(args)`` with every kernel's launch count set to 0
-    just before and read just after; returns (result, {kernel: launches})."""
+    """Drive ``serve.run(args)`` with every kernel's launch counts set to 0
+    just before and read just after; returns (result, {kernel: launches},
+    {kernel: {variant: launches}})."""
     from repro_torch.kernels.flash_attention import flash_attention_hmajor
     from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
     from repro_torch.launch import serve
     wrappers = {"K1": flash_attention_hmajor, "K2": ssd_scan_hmajor}
     for w in wrappers.values():
         w.launches = 0
+        w.launches_by_variant.update(tc=0, fma=0)
     res = serve.run(args)
-    return res, {k: w.launches for k, w in wrappers.items()}
+    return (res, {k: w.launches for k, w in wrappers.items()},
+            {k: dict(w.launches_by_variant) for k, w in wrappers.items()})
 
 
 def _ssd_inputs(B, S, H, G, P, N, dtype, seed, dt_dtype=None, serve=False):
@@ -190,23 +237,30 @@ def _ssd_inputs(B, S, H, G, P, N, dtype, seed, dt_dtype=None, serve=False):
 
 def check_k2():
     """K2 against its plain version on the card (and against the step-by-step
-    ``ssd_ref`` on the f32 cases); returns the serve-shape error."""
+    ``ssd_ref`` on the f32 cases); returns the serve-shape error with its
+    share of the tolerance, and that error split by ``k2_rounding``."""
     import torch
     from repro_torch.kernels.ref import ssd_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
+    from repro_torch.kernels.ssd_scan import (k2_variant, ssd_scan_hmajor,
+                                              ssd_scan_hmajor_plain)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []   # (name, (B, S, H, G, P, N), chunk, dtype, dt dtype, h0, tolerance)
-    for shape, chunk in [((1, 64, 4, 1, 32, 16), 16), ((2, 37, 4, 2, 16, 32), 16),
-                         ((1, 128, 2, 1, 64, 128), 32), ((1, 96, 8, 4, 16, 16), 48)]:
-        cases.append((f"f32 {shape} chunk={chunk}", shape, chunk, f32, f32, False, 1e-4))
+    for name, shape, chunk, with_h0 in [
+            ("(1,64,4,1,32,16)", (1, 64, 4, 1, 32, 16), 16, False),
+            ("(2,37,4,2,16,32)", (2, 37, 4, 2, 16, 32), 16, False),
+            ("(1,128,2,1,64,128)", (1, 128, 2, 1, 64, 128), 32, False),
+            ("(1,96,8,4,16,16)", (1, 96, 8, 4, 16, 16), 48, False),
+            ("(2,100,4,2,32,64) h0", (2, 100, 4, 2, 32, 64), 32, True),
+            ("(1,200,2,1,128,64) h0", (1, 200, 2, 1, 128, 64), 64, True)]:
+        cases.append((f"f32 {name} chunk={chunk}", shape, chunk, f32, f32, with_h0, 1e-4))
+        cases.append((f"bf16 {name} chunk={chunk}", shape, chunk, bf16, f32, with_h0, 5e-2))
     cases.append(("bf16 (1,64,2,1,32,16) dt bf16", (1, 64, 2, 1, 32, 16), 16, bf16, bf16,
                   False, 5e-2))
-    cases.append(("f32 (2,100,4,2,32,64) h0", (2, 100, 4, 2, 32, 64), 32, f32, f32, True, 1e-4))
     s = SSM_SERVE_SHAPE
     cases.append(("bf16 serve shape, dt f32", (s["B"], s["S"], s["H"], s["G"], s["P"], s["N"]),
                   256, bf16, f32, False, 5e-2))
 
-    serve_err = None
+    serve = rounding = None
     for i, (name, (B, S, H, G, P, N), chunk, dtype, dt_dtype, with_h0, tol) in enumerate(cases):
         x, dt, A, Bi, Ci = _ssd_inputs(B, S, H, G, P, N, dtype, seed=100 + i,
                                        dt_dtype=dt_dtype, serve="serve" in name)
@@ -214,8 +268,12 @@ def check_k2():
         if with_h0:
             g = torch.Generator(device="cuda").manual_seed(200 + i)
             h0 = torch.randn((B, H, P, N), generator=g, device="cuda") * 0.5
+        variant = k2_variant(dtype, P, N)
+        before = ssd_scan_hmajor.launches_by_variant[variant]
         y, st = ssd_scan_hmajor(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)
         torch.cuda.synchronize()
+        if ssd_scan_hmajor.launches_by_variant[variant] != before + 1:
+            fail(f"K2 {name}: the {variant} kernel was not the one launched")
         refs = {"plain": ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)}
         if dtype == f32:
             refs["ssd_ref"] = ssd_ref(x, dt, A, Bi, Ci, h0=h0)
@@ -225,39 +283,81 @@ def check_k2():
         if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
             fail(f"K2 {name}: output is not finite")
         for ref_name, (yr, sr) in refs.items():
-            errs = []
-            for a, b in ((y.float(), yr.float()), (st, sr)):
-                err = (a - b).abs()
-                errs.append((float(err.max()), int((err > tol + tol * b.abs()).sum())))
-            bad = errs[0][1] + errs[1][1]
-            log(f"K2 {name} vs {ref_name}: max_abs_err y {errs[0][0]:.3e} state "
-                f"{errs[1][0]:.3e} (atol=rtol={tol}) "
+            ey = _agreement(y.float(), yr.float(), tol)
+            es = _agreement(st, sr, tol)
+            bad = ey[2] + es[2]
+            log(f"K2 {name} [{variant}] vs {ref_name}: max_abs_err y {ey[0]:.3e} state "
+                f"{es[0]:.3e} (atol=rtol={tol}, share y {ey[1]:.3f} state {es[1]:.3f}) "
                 f"{'ok' if bad == 0 else f'{bad} entries out of tolerance'}")
             if bad:
                 fail(f"K2 disagrees with {ref_name} on {name}")
             if "serve" in name:
-                serve_err = max(errs[0][0], errs[1][0])
-    return serve_err
+                serve = max(ey[0], es[0]), max(ey[1], es[1])
+        if "serve" in name:
+            rounding = k2_rounding(x, dt, A, Bi, Ci, y, tol)
+    return serve, rounding
+
+
+def k2_rounding(x, dt, A, Bi, Ci, y_tc, tol):
+    """Where K2's bf16 serve-shape error comes from.  y is stored in bf16 on
+    both sides, so the error against the plain version holds the operand
+    rounding of the tensor-core products and, at an entry where the two
+    unrounded values straddle a rounding boundary, one bf16 step of output
+    rounding.  The "tc" kernel writing y in f32 gives the first alone; the
+    "fma" kernel (fp32 products) on the same inputs gives the floor that
+    output rounding sets.  "tc" runs att @ x and C @ state^T on tf32
+    operands; the same kernel with every product on bf16 operands
+    (``tf32=False``) is measured beside it."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ks
+    ref32, _ = ks.ssd_scan_hmajor_plain(x.float(), dt, A, Bi.float(), Ci.float(), chunk=256)
+    ref = ref32.to(torch.bfloat16).float()
+    y_pre, _ = ks._launch(x, dt, A, Bi, Ci, None, "tc", torch.float32)
+    y_fma, _ = ks._launch(x, dt, A, Bi, Ci, None, "fma", torch.bfloat16)
+    y_b16, _ = ks._launch(x, dt, A, Bi, Ci, None, "tc", torch.bfloat16, tf32=False)
+    y_b16_pre, _ = ks._launch(x, dt, A, Bi, Ci, None, "tc", torch.float32, tf32=False)
+    torch.cuda.synchronize()
+    out = {"max_abs_y": float(ref32.abs().max()),
+           "tc_f32_y_rounds_to_tc_y": bool(torch.equal(y_pre.to(torch.bfloat16), y_tc))}
+    for label, got, against in [("tc_vs_plain", y_tc, ref), ("fma_vs_plain", y_fma, ref),
+                                ("tc_f32_y_vs_plain_f32", y_pre, ref32),
+                                ("tc_vs_plain_f32", y_tc, ref32),
+                                ("fma_vs_plain_f32", y_fma, ref32),
+                                ("tc_bf16_operands_vs_plain", y_b16, ref),
+                                ("tc_bf16_operands_f32_y_vs_plain_f32", y_b16_pre, ref32)]:
+        err = (got.float() - against).abs()
+        i = int(err.argmax())
+        out[label] = {"max_abs_err": float(err.max()),
+                      "abs_y_there": float(against.flatten()[i].abs()),
+                      "tolerance_share": float((err / (tol + tol * against.abs())).max())}
+    log(f"K2 serve shape, rounding: {json.dumps(out)}")
+    if not out["tc_f32_y_rounds_to_tc_y"]:
+        fail("K2 tc with y in f32 does not round to the bf16 y of the same kernel")
+    if not out["tc_f32_y_vs_plain_f32"]["max_abs_err"] <= tol / 2:
+        fail(f"K2 tc's operand rounding alone is above half the tolerance ({tol / 2}) at "
+             "the serve shape")
+    return out
 
 
 def run_serve():
     """The port's main path, with the kernel launch counts read around it."""
-    res, counts = _serve_counted(SERVE_ARGS)
+    res, counts, by_variant = _serve_counted(SERVE_ARGS)
     launches = counts["K1"]
     cfg = res.lm.cfg
     log(f"serve: {cfg.name} L={cfg.num_layers} D={cfg.d_model} H={cfg.num_heads} "
         f"K={cfg.num_kv_heads} hd={cfg.head_dim} F={cfg.d_ff} V={cfg.vocab_size}: "
         f"prefill {res.prefill_s*1e3:.1f} ms, decode "
-        f"{res.decode_s/(GEN-1)*1e3:.2f} ms/token, launches {counts}")
-    if launches != cfg.num_layers or counts["K2"] != 0:
-        fail(f"launches {counts} in the internlm2 serve run, want K1 {cfg.num_layers} "
-             "(one per layer of the prefill) and K2 0")
+        f"{res.decode_s/(GEN-1)*1e3:.2f} ms/token, launches {counts} {by_variant}")
+    if (launches != cfg.num_layers or by_variant["K1"]["tc"] != cfg.num_layers
+            or counts["K2"] != 0):
+        fail(f"launches {counts} {by_variant} in the internlm2 serve run, want K1 "
+             f"{cfg.num_layers} on the tensor cores (one per layer of the prefill) and K2 0")
     return res, launches
 
 
 def run_ssm_serve():
     """The SSM serve path: K2 once per prefill layer, none in decode."""
-    res, counts = _serve_counted(SSM_SERVE_ARGS)
+    res, counts, by_variant = _serve_counted(SSM_SERVE_ARGS)
     launches = counts["K2"]
     cfg = res.lm.cfg
     s = cfg.ssm
@@ -265,10 +365,12 @@ def run_ssm_serve():
         f"d_inner={s.d_inner(cfg.d_model)} heads={s.n_heads(cfg.d_model)} P={s.head_dim} "
         f"N={s.d_state} G={s.n_groups} V={cfg.vocab_size}: prefill "
         f"{res.prefill_s*1e3:.1f} ms, decode {res.decode_s/(GEN-1)*1e3:.2f} ms/token, "
-        f"launches {counts}")
-    if launches != cfg.num_layers or counts["K1"] != 0:
-        fail(f"launches {counts} in the mamba2 serve run, want K2 {cfg.num_layers} "
-             "(one per layer of the prefill, none in decode) and K1 0")
+        f"launches {counts} {by_variant}")
+    if (launches != cfg.num_layers or by_variant["K2"]["tc"] != cfg.num_layers
+            or counts["K1"] != 0):
+        fail(f"launches {counts} {by_variant} in the mamba2 serve run, want K2 "
+             f"{cfg.num_layers} on the tensor cores (one per layer of the prefill, none in "
+             "decode) and K1 0")
     return res, launches
 
 
@@ -405,7 +507,8 @@ def time_prefill(lm, prompts, n=3):
 
 
 def _time_ms(fn, n=25, warmup=3):
-    """Median over n single launches of CUDA-event time, in ms."""
+    """Median over n single calls of CUDA-event time, in ms.  Each call
+    starts on an idle card, so the host's work to launch it is counted."""
     import torch
     for _ in range(warmup):
         fn()
@@ -420,37 +523,65 @@ def _time_ms(fn, n=25, warmup=3):
     return statistics.median(times)
 
 
+def _device_ms(fn, reps=7, per_rep=10, warmup=3):
+    """Device time of one call, in ms: CUDA events around ``per_rep`` calls
+    enqueued back to back, so that the host's work to launch each call
+    overlaps the card's work on the one before, divided by ``per_rep``; the
+    median of ``reps`` such runs."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(per_rep):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / per_rep)
+    return statistics.median(times)
+
+
 def time_k1():
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_hmajor,
+    from repro_torch.kernels.flash_attention import (_launch, flash_attention_hmajor,
                                                      flash_attention_hmajor_plain)
     s = SERVE_SHAPE
     B, Sq, Skv, H, K, hd = s["B"], s["Sq"], s["Skv"], s["H"], s["K"], s["hd"]
     q, k, v = _qkv(B, Sq, Skv, H, K, hd, torch.bfloat16, seed=99)
-    kernel_ms = _time_ms(lambda: flash_attention_hmajor(q, k, v, causal=True))
+    kernel = lambda: flash_attention_hmajor(q, k, v, causal=True)
+    library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    kernel_ms, device_ms = _time_ms(kernel), _device_ms(kernel)
+    fma_ms = _time_ms(lambda: _launch(q, k, v, "fma", causal=True, window=0, kv_valid=None,
+                                      softmax_scale=None))
     plain_ms = _time_ms(lambda: flash_attention_hmajor_plain(q, k, v, causal=True))
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+    library_ms, library_device_ms = _time_ms(library), _device_ms(library)
     # least time for the same work: the causal (q, k) pairs only (Sq == Skv here)
     pairs = Sq * (Sq + 1) // 2
     flops = 4 * hd * pairs * B * H                      # q.k and p.v, 2 flops per MAC
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(ms=kernel_ms, device_ms=device_ms, fma_ms=fma_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_device_ms=library_device_ms,
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flops=flops, bytes=nbytes)
 
 
 def time_k2():
-    from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
+    from repro_torch.kernels.ssd_scan import _launch, ssd_scan_hmajor, ssd_scan_hmajor_plain
     import torch
     s = SSM_SERVE_SHAPE
     B, S, H, G, P, N = s["B"], s["S"], s["H"], s["G"], s["P"], s["N"]
     x, dt, A, Bi, Ci = _ssd_inputs(B, S, H, G, P, N, torch.bfloat16, seed=98, serve=True)
-    kernel_ms = _time_ms(lambda: ssd_scan_hmajor(x, dt, A, Bi, Ci))
+    kernel = lambda: ssd_scan_hmajor(x, dt, A, Bi, Ci)
+    kernel_ms, device_ms = _time_ms(kernel), _device_ms(kernel)
+    fma_ms = _time_ms(lambda: _launch(x, dt, A, Bi, Ci, None, "fma", torch.bfloat16))
+    bf16_ops = lambda: _launch(x, dt, A, Bi, Ci, None, "tc", torch.bfloat16, tf32=False)
+    bf16_operands_ms, bf16_operands_device_ms = _time_ms(bf16_ops), _device_ms(bf16_ops)
     plain_ms = _time_ms(lambda: ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=256))
     # least time for the same work: bytes read and written once; operations
     # of the chunk-256 block decomposition (C B^T once per group and chunk,
@@ -467,8 +598,9 @@ def time_k2():
               + B * H * P * N * 4)                          # final state, f32
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=max(t_ops, t_bytes),
+    return dict(ms=kernel_ms, device_ms=device_ms, fma_ms=fma_ms, plain_ms=plain_ms,
+                library_ms=None, library_device_ms=None, bf16_operands_ms=bf16_operands_ms,
+                bf16_operands_device_ms=bf16_operands_device_ms, bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flops=flops, bytes=nbytes)
 
@@ -482,10 +614,16 @@ def _serve_times(res, prefill_warm_ms, checks):
             "tok_per_s": 4 * (GEN - 1) / res.decode_s, "checks": checks}
 
 
+_TIME_KEYS = ("ms", "device_ms", "fma_ms", "plain_ms", "library_ms", "library_device_ms",
+              "bound_ms", "bound_by")
+
+
 def _kernel_line(name, source, replaces, launches, max_abs_err, t):
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max_abs_err,
-            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    """One kernel of the serve paths: its tensor-core variant, which the bf16
+    main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs."""
+    return {"name": name, "route": "cuda", "variant": "tc", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
+            **{k: t[k] for k in _TIME_KEYS}}
 
 
 def main():
@@ -495,8 +633,9 @@ def main():
     import torch
 
     build_s = build_kernels()
-    k1_err = check_k1()
-    k2_err = check_k2()
+    occupancy = kernel_occupancy()
+    k1_err, k1_share = check_k1()
+    (k2_err, k2_share), k2_rounding_split = check_k2()
 
     res, k1_launches = run_serve()
     checks = check_serve(res)
@@ -514,10 +653,14 @@ def main():
     times = {
         "card": card,
         "build_s": build_s,
-        "k1_serve_shape": {k: k1[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                              "bound_by", "flops", "bytes")},
-        "k2_serve_shape": {k: k2[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                              "bound_by", "flops", "bytes")},
+        "occupancy": occupancy,
+        "k1_serve_shape": {"max_abs_err": k1_err, "tolerance_share": k1_share,
+                           **{k: k1[k] for k in _TIME_KEYS + ("flops", "bytes")}},
+        "k2_serve_shape": {"max_abs_err": k2_err, "tolerance_share": k2_share,
+                           "rounding": k2_rounding_split,
+                           **{k: k2[k] for k in _TIME_KEYS + (
+                               "bf16_operands_ms", "bf16_operands_device_ms", "flops",
+                               "bytes")}},
         "serve": serve,
         "ssm_serve": ssm_serve,
         "wall_s": time.perf_counter() - t_start,

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface.  It is compiled by
 ``nvcc`` for ``sm_90a`` (Hopper) into ``build/kernels/`` at the root of the
-checkout, under a name that carries a hash of the source and the flags, so
-a changed source is rebuilt and an unchanged one is loaded as it is.  The
+checkout, under a name that carries a hash of the source, of every shared
+header ``csrc/*.cuh`` and of the flags, so a changed source or header is
+rebuilt and an unchanged one is loaded as it is.  The
 build runs on the machine with the card; importing this module builds
 nothing.
 """
@@ -38,8 +39,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

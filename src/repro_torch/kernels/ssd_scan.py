@@ -5,7 +5,9 @@ Layout (head-major): x [B, H, S, P]; dt [B, H, S]; A [H];
 B_in/C_in [B, G, S, N]; outputs y [B, H, S, P] in x's type and the final
 state [B, H, P, N] in fp32.  The kernel (``csrc/ssd_scan.cu``) replaces the
 Pallas TPU kernel of ``repro.kernels.ssd_scan``: one block per (b, h)
-carries the fp32 state through every chunk of the sequence.
+carries the fp32 state through every chunk of the sequence.  It has two
+variants: bf16 x, B and C run on the tensor cores ("tc"), f32 on CUDA cores
+in fp32 ("fma"); ``k2_variant`` chooses.
 
 ``ssd_scan_hmajor`` launches the kernel for CUDA tensors and runs the plain
 version only for tensors on the CPU.
@@ -24,14 +26,29 @@ MAX_HEAD_DIM = 128     # P
 MAX_D_STATE = 128      # N
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODES = {"fma": 0, "tc": 1}
+# The tc kernel takes att @ x and C @ state^T on tf32 operands: on bf16
+# operands the mamba2 serve shape's y, before it is stored in bf16, was off
+# by 3.0e-2 on an H100, more than half of the 5e-2 tolerance (PERF.md).
+# The bf16-operand kernel stays for chip_smoke.py to measure beside it.
+TC_TF32 = True
+
+
+def k2_variant(x_dtype, P, N):
+    """"tc" (bf16 tensor-core kernel) for bfloat16 x, B, C with P, N <= 128
+    and multiples of 8 (16-byte rows for its cp.async copies); "fma" (fp32
+    CUDA-core kernel) for everything else, f32 included."""
+    return ("tc" if x_dtype == torch.bfloat16 and P <= MAX_HEAD_DIM and N <= MAX_D_STATE
+            and P % 8 == 0 and N % 8 == 0 else "fma")
 
 
 def _lib():
     lib = build.load("ssd_scan")
     fn = lib.repro_ssd_scan_fwd
     if fn.argtypes is None:
-        # x, dt, A, B, C, h0, y, state; x_dtype, dt_dtype, B, H, G, S, P, N; stream
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        # x, dt, A, B, C, h0, y, state; x_dtype, y_dtype, dt_dtype, variant,
+        # tf32, B, H, G, S, P, N; stream
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -113,15 +130,35 @@ def ssd_scan_hmajor(x, dt, A, B_in, C_in, *, chunk=DEFAULT_CHUNK, h0=None):
     x, B_in and C_in share one type (float32 or bfloat16); dt is float32 or
     bfloat16; h0 (optional, [B,H,P,N] float32) is the initial state.  CPU
     tensors take the plain version with chunks of ``chunk`` rows.  CUDA
-    tensors launch the kernel on the current stream (one launch, counted in
-    ``ssd_scan_hmajor.launches``); the kernel tiles the sequence in chunks
-    of its own length (64 rows, so that the [Q,Q] tile fits in shared
-    memory) and ignores ``chunk``: the result depends on the chunk length
-    only through float rounding.
+    tensors launch the kernel variant that ``k2_variant`` chooses on the
+    current stream (one launch, counted in ``ssd_scan_hmajor.launches`` and,
+    by variant, in ``.launches_by_variant``); the kernel tiles the sequence
+    in chunks of its own length (64 rows, so that the [Q,Q] tile fits in
+    shared memory) and ignores ``chunk``: the result depends on the chunk
+    length only through float rounding.
     """
     _check(x, dt, A, B_in, C_in, h0)
     if x.device.type == "cpu":
         return ssd_scan_hmajor_plain(x, dt, A, B_in, C_in, chunk=chunk, h0=h0)
+    return _launch(x, dt, A, B_in, C_in, h0, k2_variant(x.dtype, x.shape[3], B_in.shape[3]),
+                   x.dtype)
+
+
+def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=TC_TF32):
+    """Launch ``variant`` ("tc" or "fma") of K2 on checked CUDA tensors, with
+    y in ``y_dtype``.  The serve path takes ``k2_variant``'s choice and y in
+    x's type; chip_smoke.py also runs the "fma" kernel on bf16 inputs, the
+    "tc" kernel with y in float32 (y before it is rounded to bf16) and with
+    ``tf32`` off (every product on bf16 operands) through here, to split the
+    tensor-core kernel's error by its source.  A variant or y type that
+    cannot take the call raises."""
+    if variant not in _VARIANT_CODES or (variant == "tc" and k2_variant(
+            x.dtype, x.shape[3], B_in.shape[3]) != "tc"):
+        raise ValueError(f"K2 variant {variant!r} does not take {x.dtype} at "
+                         f"P={x.shape[3]}, N={B_in.shape[3]}")
+    if y_dtype != x.dtype and not (variant == "tc" and y_dtype == torch.float32):
+        raise ValueError(f"K2 {variant} does not write y in {y_dtype} from {x.dtype} x")
+    tf32 = tf32 and variant == "tc"
     if x.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {x.device}")
     tensors = (x, dt, A, B_in, C_in) + (() if h0 is None else (h0,))
@@ -134,18 +171,34 @@ def ssd_scan_hmajor(x, dt, A, B_in, C_in, *, chunk=DEFAULT_CHUNK, h0=None):
                          f"N <= {MAX_D_STATE}, got P={P}, N={N}")
     if Bz > 65535:
         raise ValueError(f"K2 takes batch <= 65535, got {Bz}")
-    y = torch.empty_like(x)
+    if variant == "tc" and any(t.data_ptr() % 16 for t in (x, B_in, C_in)):
+        raise ValueError("K2's tensor-core kernel wants x, B and C 16-byte aligned")
+    y = torch.empty(x.shape, dtype=y_dtype, device=x.device)
     state = torch.empty((Bz, H, P, N), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
                      C_in.data_ptr(), None if h0 is None else h0.data_ptr(),
                      y.data_ptr(), state.data_ptr(), _DTYPE_CODES[x.dtype],
-                     _DTYPE_CODES[dt.dtype], Bz, H, G, S, P, N, stream)
+                     _DTYPE_CODES[y_dtype], _DTYPE_CODES[dt.dtype], _VARIANT_CODES[variant],
+                     int(tf32), Bz, H, G, S, P, N, stream)
     if err != 0:
-        raise RuntimeError(f"K2 SSD scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"K2 SSD scan ({variant}) launch failed: CUDA error {err}")
     ssd_scan_hmajor.launches += 1
+    ssd_scan_hmajor.launches_by_variant[variant] += 1
     return y, state
 
 
+def occupancy(variant, P):
+    """(dynamic shared memory in bytes, blocks per SM) of the kernel that
+    ``variant`` launches at head dim ``P``, on the current CUDA device."""
+    fn = build.load("ssd_scan").repro_ssd_scan_occupancy
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(_VARIANT_CODES[variant], int(P), ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"K2 occupancy query ({variant}, P {P}) failed: CUDA error {err}")
+    return smem.value, blocks.value
+
+
 ssd_scan_hmajor.launches = 0
+ssd_scan_hmajor.launches_by_variant = {"tc": 0, "fma": 0}
