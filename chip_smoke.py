@@ -30,7 +30,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 6. times: kernel (and, on the same inputs, its CUDA-core variant), plain
    version, library call and serve times, as JSON.  ``ms`` is the median of
    single calls, each timed alone (the host's launch work included);
-   ``device_ms`` times calls enqueued back to back, which hides it.
+   ``device_ms`` times calls enqueued back to back, which hides it;
+7. cb: ElastiBench's own pipeline on the kernel-duet suite
+   (``repro_torch.benchmarks.kernel_bench``).  Each duet's two versions run
+   once on the card at the suite's default shapes and are held to each
+   other (dot vs chunked attention 1e-5, the exact SSD recurrence vs
+   ``ssd_chunked``, which is K2 "fma", 1e-4, unfused vs fused rms_norm
+   1e-5); each duet then runs once directly, outside the engine, so that a
+   failure raises here instead of becoming a failed invocation.  Then
+   ``Pipeline(get_suite("kernels", device="cuda"))`` runs
+   ``kernel_commits()`` with 12 calls per benchmark; every benchmark must
+   come back with all 12 pairs, finite positive timings, one history
+   record each, and K2 launched during the run.  The ``duets`` JSON line
+   gives each benchmark's median times, change and CI.
 
 The last line of standard output is the device line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
@@ -40,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -61,6 +74,11 @@ SSM_SERVE_ARGS = ["--arch", "mamba2-1.3b", "--batch", "4", "--prompt-len", "1024
                   "--gen", "32", "--seed", "0", "--device", "cuda"]
 SSM_SERVE_SHAPE = dict(B=4, S=1024, H=64, G=1, P=64, N=128)     # mamba2-1.3b
 GEN = 32
+CB_CALLS = 12        # calls per benchmark of the phase 7 pipeline run
+# v1 against v2 of each duet, at the JAX tests' tolerances (tests/
+# test_attention.py:28, tests/test_ssm.py:32; rms_norm in float32)
+DUET_TOLERANCE = {"attention_dot_vs_chunked": 1e-5, "ssd_recurrence_vs_chunked": 1e-4,
+                  "rmsnorm_fused_vs_unfused": 1e-5}
 
 
 def fail(msg: str):
@@ -199,17 +217,23 @@ def check_k1():
     return serve
 
 
-def _serve_counted(args):
-    """Drive ``serve.run(args)`` with every kernel's launch counts set to 0
-    just before and read just after; returns (result, {kernel: launches},
-    {kernel: {variant: launches}})."""
+def _reset_launches():
+    """Set every kernel's launch counts to 0; returns the wrappers by kernel."""
     from repro_torch.kernels.flash_attention import flash_attention_hmajor
     from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
-    from repro_torch.launch import serve
     wrappers = {"K1": flash_attention_hmajor, "K2": ssd_scan_hmajor}
     for w in wrappers.values():
         w.launches = 0
         w.launches_by_variant.update(tc=0, fma=0)
+    return wrappers
+
+
+def _serve_counted(args):
+    """Drive ``serve.run(args)`` with every kernel's launch counts set to 0
+    just before and read just after; returns (result, {kernel: launches},
+    {kernel: {variant: launches}})."""
+    from repro_torch.launch import serve
+    wrappers = _reset_launches()
     res = serve.run(args)
     return (res, {k: w.launches for k, w in wrappers.items()},
             {k: dict(w.launches_by_variant) for k, w in wrappers.items()})
@@ -605,6 +629,132 @@ def time_k2():
                 flops=flops, bytes=nbytes)
 
 
+def _device_per_call(fn, inputs):
+    """(device work items, device ms) of one warm call of ``fn``, summed
+    over the CUDA events of a torch.profiler trace; (None, None) where the
+    trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*inputs)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None, None
+    return sum(e.count for e in events), sum(e.self_device_time_total for e in events) / 1e3
+
+
+def check_duets():
+    """Each duet's two versions once on the card at the suite's default
+    shapes, held to each other at the JAX tests' tolerances, and one more
+    call of each under the profiler; returns the errors and the device work
+    of a call, by duet."""
+    import torch
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
+    out = {}
+    for name, v1, v2, draw, _ in kb.DUETS:
+        inputs = draw(device=torch.device("cuda"))
+        fma = ssd_scan_hmajor.launches_by_variant["fma"]
+        a, b = v1(*inputs), v2(*inputs)
+        torch.cuda.synchronize()
+        ssd = name == "ssd_recurrence_vs_chunked"
+        if ssd:
+            a = a.movedim(1, 2)     # the recurrence's y is head-major
+        if ssd and ssd_scan_hmajor.launches_by_variant["fma"] != fma + 1:
+            fail(f"duet {name}: ssd_chunked did not launch K2 fma once")
+        if a.shape != b.shape or not (a.is_cuda and b.is_cuda):
+            fail(f"duet {name}: versions give {tuple(a.shape)} on {a.device} and "
+                 f"{tuple(b.shape)} on {b.device}")
+        tol = DUET_TOLERANCE[name]
+        max_err, share, bad = _agreement(a.float(), b.float(), tol)
+        log(f"duet {name}: v1 vs v2 max_abs_err {max_err:.3e} (atol=rtol={tol}, share "
+            f"{share:.3f}) {'ok' if bad == 0 else f'{bad} entries out of tolerance'}")
+        if bad or not torch.isfinite(b).all():
+            fail(f"duet {name}: the two versions disagree")
+        out[name] = {"max_abs_err": max_err, "tolerance": tol, "tolerance_share": share}
+        for side, fn in (("v1", v1), ("v2", v2)):
+            n, ms = _device_per_call(fn, inputs)
+            out[name].update({f"{side}_device_items": n, f"{side}_device_ms": ms})
+        log(f"duet {name}: device work per call {json.dumps(out[name])}")
+    return out
+
+
+def run_cb():
+    """The paper's pipeline on the kernel-duet suite, on the card.  Returns
+    the duets line and the launches of each kernel during the pipeline run."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.cb import Pipeline, PipelineConfig, get_suite
+    from repro_torch.cb.history import SOURCE_RUN
+    suite = get_suite("kernels", device="cuda")
+    # the engine times each duet on a worker thread, where K2 launches on the
+    # thread's current stream: it must be the default stream there
+    with ThreadPoolExecutor(1) as pool:
+        worker_stream = pool.submit(lambda: torch.cuda.current_stream().cuda_stream).result()
+    if worker_stream != torch.cuda.default_stream().cuda_stream:
+        fail("a worker thread's current CUDA stream is not the default stream")
+    for name, duet in suite._build().items():      # outside the engine: failures raise
+        v1s, v2s = duet.run_pair(("v1", "v2"))
+        log(f"duet {name} once, directly: v1 {v1s * 1e3:.4f} ms, v2 {v2s * 1e3:.4f} ms")
+    reports = []      # the suite's run results: their engine reports hold the pairs
+    suite_run = suite.run
+    suite.run = lambda *a, **kw: reports.append(suite_run(*a, **kw)) or reports[-1]
+    pipe = Pipeline(suite, PipelineConfig(
+        suite="kernels", provider="local", mode="selective", n_calls=CB_CALLS,
+        repeats_per_call=1, parallelism=1, min_results=10))
+    commits = kb.kernel_commits()
+    wrappers = _reset_launches()
+    t0 = time.perf_counter()
+    rep = pipe.run_stream(commits)
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    by_variant = {k: dict(w.launches_by_variant) for k, w in wrappers.items()}
+
+    names = suite.benchmark_names()
+    if len(rep.commits) != 1:
+        fail(f"pipeline: {len(rep.commits)} commit runs, want 1")
+    run = rep.commits[0]
+    if sorted(run.ran) != names or len(reports) != 1:
+        fail(f"pipeline ran {run.ran} in {len(reports)} suite runs, want {names} in one")
+    report = reports[0].report
+    if report.failed_benchmarks:
+        fail(f"pipeline: failed benchmarks {report.failed_benchmarks}")
+    if sorted(run.changes) != names or any(c.n_pairs != CB_CALLS for c in run.changes.values()):
+        fail(f"pipeline: pairs {({b: c.n_pairs for b, c in run.changes.items()})}, "
+             f"want {CB_CALLS} for each of {names}")
+    if run.invocations != CB_CALLS * len(run.ran):
+        fail(f"pipeline: {run.invocations} invocations, want {CB_CALLS * len(run.ran)}")
+    recs = [r for r in pipe.history.records() if r.source == SOURCE_RUN]
+    if (sorted(r.benchmark for r in recs) != names
+            or any(r.invocations != CB_CALLS or not r.billed_seconds > 0 for r in recs)):
+        fail(f"history: {[(r.benchmark, r.invocations, r.billed_seconds) for r in recs]}")
+    times = {b: ([], []) for b in names}
+    for p in report.pairs:
+        times[p.benchmark][0].append(p.v1_seconds)
+        times[p.benchmark][1].append(p.v2_seconds)
+    if not all(math.isfinite(t) and t > 0 for v in times.values() for side in v for t in side):
+        fail("pipeline: a duet timing is not finite and positive")
+    if by_variant["K2"]["fma"] < 1 or launches["K1"] != 0:
+        fail(f"pipeline: launches {launches} {by_variant}, want K2 fma at least once "
+             "(the SSD duet's chunked side) and K1 none")
+    duets = {b: {"v1_median_s": statistics.median(times[b][0]),
+                 "v2_median_s": statistics.median(times[b][1]),
+                 "median_diff_pct": c.median_diff_pct, "ci": [c.ci_low, c.ci_high],
+                 "changed": c.changed, "n": c.n_pairs}
+             for b, c in sorted(run.changes.items())}
+    line = {**duets, "wall_s": wall, "engine_wall_s": report.wall_seconds,
+            "invocations": run.invocations, "k2_launches": launches["K2"],
+            "k2_launches_by_variant": by_variant["K2"]}
+    log(f"pipeline: {run.invocations} invocations in {wall:.2f} s, launches {launches} "
+        f"{by_variant}")
+    return line, launches
+
+
 def _serve_times(res, prefill_warm_ms, checks):
     cfg = res.lm.cfg
     return {"arch": cfg.name, "layers": cfg.num_layers, "batch": 4, "prompt_len": 1024,
@@ -618,12 +768,14 @@ _TIME_KEYS = ("ms", "device_ms", "fma_ms", "plain_ms", "library_ms", "library_de
               "bound_ms", "bound_by")
 
 
-def _kernel_line(name, source, replaces, launches, max_abs_err, t):
+def _kernel_line(name, source, replaces, launches, duet_launches, max_abs_err, t):
     """One kernel of the serve paths: its tensor-core variant, which the bf16
-    main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs."""
+    main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs.
+    ``launches`` counts the serve run, ``duet_launches`` the pipeline run of
+    phase 7."""
     return {"name": name, "route": "cuda", "variant": "tc", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
-            **{k: t[k] for k in _TIME_KEYS}}
+            "replaces": replaces, "launches": launches, "duet_launches": duet_launches,
+            "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS}}
 
 
 def main():
@@ -650,6 +802,17 @@ def main():
     del res
     k2 = time_k2()
 
+    t_cb = time.perf_counter()
+    duet_checks = check_duets()
+    duets, duet_launches = run_cb()
+    for name, c in duet_checks.items():
+        for side in ("v1", "v2"):
+            ms = c[f"{side}_device_ms"]
+            duets[name][f"{side}_device_share"] = (
+                None if ms is None else ms / (duets[name][f"{side}_median_s"] * 1e3))
+    print(json.dumps({"duets": {**duets, "checks": duet_checks,
+                                "phase_s": time.perf_counter() - t_cb}}))
+
     times = {
         "card": card,
         "build_s": build_s,
@@ -668,9 +831,11 @@ def main():
     print(json.dumps({"times": times}))
     print(json.dumps({"kernels": [
         _kernel_line("K1 flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:32", k1_launches, k1_err, k1),
+                     "src/repro/kernels/flash_attention.py:32", k1_launches,
+                     duet_launches["K1"], k1_err, k1),
         _kernel_line("K2 ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
-                     "src/repro/kernels/ssd_scan.py:31", k2_launches, k2_err, k2),
+                     "src/repro/kernels/ssd_scan.py:31", k2_launches,
+                     duet_launches["K2"], k2_err, k2),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

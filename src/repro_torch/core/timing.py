@@ -25,12 +25,17 @@ class Timing:
 
 
 def block(x):
-    """Wait until the device has produced ``x`` (a tensor or a nest of them)."""
+    """Wait until the device has produced ``x`` (a tensor or a nest of them).
+
+    Synchronises the card that holds the first CUDA tensor, named
+    explicitly: a duet runs on an engine worker thread, whose current
+    device need not be the tensor's."""
     tensors = [x] if isinstance(x, torch.Tensor) else (
         list(x.values()) if isinstance(x, dict) else
         list(x) if isinstance(x, (list, tuple)) else [])
-    if any(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors):
-        torch.cuda.synchronize()
+    cuda = [t for t in tensors if isinstance(t, torch.Tensor) and t.is_cuda]
+    if cuda:
+        torch.cuda.synchronize(cuda[0].device)
     return x
 
 

@@ -1,0 +1,150 @@
+"""The port's continuous-benchmarking pipeline (selection, cache, history,
+detector, pipeline) against the JAX package's, on the synthetic workloads
+and commit stream of tests/test_cb_pipeline.py.
+
+Virtual time makes every number of a run deterministic, wall time and cost
+included, and both sides run the same NumPy code: reports, events, cache
+counts and history records must agree bit for bit.  The JAX side runs its
+scalar engine (``engine="reference"``), the one the port has.
+"""
+import json
+import sqlite3
+from dataclasses import asdict
+
+import pytest
+
+from repro import cb as jax_cb
+from repro.faas.platform import SimWorkload as JaxSimWorkload
+from repro_torch import cb
+from repro_torch.cb import detect, history
+from repro_torch.faas.platform import SimWorkload
+
+N = 14
+
+
+def canon(obj):
+    """Exact, class-blind text of a nest of dataclasses, dicts, lists and
+    floats: two results are bit-identical iff their texts are equal."""
+    if hasattr(obj, "__dataclass_fields__"):
+        obj = asdict(obj)
+    return json.dumps(obj, sort_keys=True, default=repr)
+
+
+def _workloads(cls):
+    w = {}
+    for i in range(N):
+        name = f"s{i:02d}"
+        w[name] = cls(name=name, base_seconds=0.4 + 0.05 * i, effect_pct=0.0,
+                      run_sigma=0.02 + 0.002 * (i % 5), fs_write=(i == 13),
+                      setup_seconds=2.0)
+    return w
+
+
+def _stream(mod, cls):
+    w = _workloads(cls)
+    names = sorted(w)
+    measurable = [n for n in names if not w[n].fs_write]
+    commits, drift = mod.synthetic_stream(
+        names, mod.StreamConfig(n_commits=12, touched_lo=2, touched_hi=5,
+                                drift_length=6, drift_per_commit_pct=2.0, seed=11),
+        effectable=measurable, drift_candidates=measurable[:6])
+    return w, commits, drift
+
+
+def _run(mod, cls, mode, *, history=None, cache=None, **kw):
+    w, commits, _ = _stream(mod, cls)
+    if mod is jax_cb:
+        kw["engine"] = "reference"
+    cfg = mod.PipelineConfig(mode=mode, parallelism=50, max_staleness=3, seed=2, **kw)
+    pipe = mod.Pipeline(mod.SyntheticSuite(dict(w)), cfg, history=history, cache=cache)
+    return pipe, pipe.run_stream(commits)
+
+
+@pytest.mark.parametrize("mode,kw", [("full", {}), ("selective", {}),
+                                     ("selective_cached", {}),
+                                     ("selective", dict(adaptive=True)),
+                                     ("selective_cached", dict(provider="gcf"))])
+def test_pipeline_reports_match_jax(mode, kw):
+    pipe, rep = _run(cb, SimWorkload, mode, **kw)
+    ref_pipe, ref = _run(jax_cb, JaxSimWorkload, mode, **kw)
+    assert len(rep.commits) == 11 and rep.total_invocations > 0 and rep.events
+    assert rep.total_wall_seconds > 0 and rep.total_cost > 0
+    for run, ref_run in zip(rep.commits, ref.commits):
+        assert canon(run) == canon(ref_run), run.commit_id
+    assert canon(rep.events) == canon(ref.events)
+    assert (rep.cache_hits, rep.cache_misses) == (ref.cache_hits, ref.cache_misses)
+    assert canon(rep) == canon(ref)
+    assert canon(pipe.history.records()) == canon(ref_pipe.history.records())
+
+
+def test_jax_history_and_cache_read_back_by_the_port(tmp_path):
+    """A history and a result cache that the JAX package wrote are read by
+    the port record for record, and the port's pipeline carries on from
+    them exactly as the JAX pipeline does."""
+    hpath, cpath = str(tmp_path / "history.jsonl"), str(tmp_path / "cache.jsonl")
+    _run(jax_cb, JaxSimWorkload, "selective_cached",
+         history=jax_cb.HistoryStore(hpath), cache=jax_cb.ResultCache(cpath))
+    back, ref = cb.HistoryStore(hpath), jax_cb.HistoryStore(hpath)
+    assert len(back) == 12 * N and back.skipped_schema == 0
+    assert history.SCHEMA_VERSION == jax_cb.history.SCHEMA_VERSION
+    assert [canon(r) for r in back.records()] == [canon(r) for r in ref.records()]
+    assert back.commits() == ref.commits()
+    assert canon(back.series("s03", mode="selective_cached")) == \
+        canon(ref.series("s03", mode="selective_cached"))
+
+    back.to_sqlite(str(tmp_path / "port.sqlite"))
+    ref.to_sqlite(str(tmp_path / "jax.sqlite"))
+    dumps = []
+    for name in ("port.sqlite", "jax.sqlite"):
+        con = sqlite3.connect(str(tmp_path / name))
+        try:
+            dumps.append(list(con.iterdump()))
+        finally:
+            con.close()
+    assert dumps[0] == dumps[1] and len(dumps[0]) > 12 * N
+
+    # a second run over the same stream, one side each, from copies of the
+    # persisted files: both read the same hits from the cache
+    for suffix in ("port", "jax"):
+        for p in (hpath, cpath):
+            (tmp_path / f"{suffix}-{p.rsplit('/', 1)[1]}").write_text(open(p).read())
+    _, rep = _run(cb, SimWorkload, "selective_cached",
+                  history=cb.HistoryStore(str(tmp_path / "port-history.jsonl")),
+                  cache=cb.ResultCache(str(tmp_path / "port-cache.jsonl")))
+    _, ref_rep = _run(jax_cb, JaxSimWorkload, "selective_cached",
+                      history=jax_cb.HistoryStore(str(tmp_path / "jax-history.jsonl")),
+                      cache=jax_cb.ResultCache(str(tmp_path / "jax-cache.jsonl")))
+    assert rep.cache_hits > 0 and canon(rep) == canon(ref_rep)
+    assert (tmp_path / "port-history.jsonl").read_text() == \
+        (tmp_path / "jax-history.jsonl").read_text()
+
+
+def test_detector_scan_matches_jax():
+    pipe, _ = _run(cb, SimWorkload, "full")
+    ref_pipe, _ = _run(jax_cb, JaxSimWorkload, "full")
+    for kw in ({}, dict(min_cumulative_pct=1.0), dict(z_threshold=2.0, step_clip_z=3.0)):
+        got = detect.RegressionDetector(cb.DetectorConfig(**kw)).scan(pipe.history)
+        ref = jax_cb.RegressionDetector(jax_cb.DetectorConfig(**kw)).scan(ref_pipe.history)
+        assert got and canon(got) == canon(ref)
+
+
+def test_what_the_port_lacks_names_its_roadmap_item():
+    _, commits, _ = _stream(cb, SimWorkload)
+    pipe = cb.Pipeline(cb.SyntheticSuite(_workloads(SimWorkload)))
+    for call in (lambda: pipe.submit_stream(commits, service=None),
+                 lambda: pipe.collect_service([]),
+                 lambda: pipe.run_stream_service(commits, service=None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cb.SyntheticSuite()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _run(cb, SimWorkload, "selective", engine="fast")
+
+
+def test_run_pipeline_resolves_the_suite_by_name():
+    w, commits, _ = _stream(cb, SimWorkload)
+    cfg = cb.PipelineConfig(mode="selective", parallelism=50, max_staleness=3, seed=2)
+    rep = cb.run_pipeline("synthetic", commits, cfg, suite_kwargs={"workloads": dict(w)})
+    _, same = _run(cb, SimWorkload, "selective")
+    assert canon(rep) == canon(same)
