@@ -42,7 +42,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``kernel_commits()`` with 12 calls per benchmark; every benchmark must
    come back with all 12 pairs, finite positive timings, one history
    record each, and K2 launched during the run.  The ``duets`` JSON line
-   gives each benchmark's median times, change and CI.
+   gives each benchmark's median times, change and CI;
+8. cli: ElastiBench's command line (``repro_torch.cb.cli.main``) in this
+   process, as a user starts it: ``--suite kernels`` with 12 calls per
+   benchmark on the card must exit 0 and print one summary of one commit
+   and 36 invocations, write one run record per benchmark to its history
+   file, and launch K2; then one synthetic run (20 commits, lambda,
+   selective_cached, seed 0), which must launch no kernel and print the
+   summary line that the JAX package's command line prints for the same
+   arguments (by its SHA-256).  The ``cli`` JSON line gives both summaries
+   and the wall seconds of each;
+9. bootstrap: the statistics engine's torch backend
+   (``bootstrap_median_ci_batch(backend="torch", device="cuda")``) at
+   k = 106 and k = 2,120 arrays of n = 45 diffs (the paper's suite at 15
+   calls x 3 repeats, and twenty such commits in one batch), and on a
+   ragged set with a NaN and an inf row, held to the NumPy backend at
+   rtol 1e-5 / atol 1e-6; both backends timed (median of 7 synchronised
+   calls, index matrices cached).  The ``bootstrap`` JSON line gives the
+   largest deviation as a share of the tolerance and the times.
 
 The last line of standard output is the device line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
@@ -75,6 +92,12 @@ SSM_SERVE_ARGS = ["--arch", "mamba2-1.3b", "--batch", "4", "--prompt-len", "1024
 SSM_SERVE_SHAPE = dict(B=4, S=1024, H=64, G=1, P=64, N=128)     # mamba2-1.3b
 GEN = 32
 CB_CALLS = 12        # calls per benchmark of the phase 7 pipeline run
+# the summary line that the JAX package's `python -m repro.cb.cli --commits 20
+# --providers lambda --mode selective_cached --seed 0` prints, by SHA-256
+CLI_SYNTHETIC_ARGS = ["--commits", "20", "--providers", "lambda", "--mode",
+                      "selective_cached", "--seed", "0"]
+CLI_SYNTHETIC_SHA256 = "803ea671580228c1287737deb5a4b768abfb38bf62026ee6656673f777e5a786"
+BOOT_TOL = dict(rtol=1e-5, atol=1e-6)     # tests/test_stats_batch.py's tolerance
 # v1 against v2 of each duet, at the JAX tests' tolerances (tests/
 # test_attention.py:28, tests/test_ssm.py:32; rms_norm in float32)
 DUET_TOLERANCE = {"attention_dot_vs_chunked": 1e-5, "ssd_recurrence_vs_chunked": 1e-4,
@@ -755,6 +778,128 @@ def run_cb():
     return line, launches
 
 
+def _cli(argv):
+    """``repro_torch.cb.cli.main(argv)`` in this process: (exit code, stdout
+    lines, wall s, {kernel: launches}), the counts set to 0 just before."""
+    import contextlib
+    import io
+    from repro_torch.cb import cli
+    wrappers = _reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    wall = time.perf_counter() - t0
+    return (code, buf.getvalue().splitlines(), wall,
+            {k: w.launches for k, w in wrappers.items()})
+
+
+def run_cli():
+    """Phase 8: the command line, on the kernel suite and on a synthetic
+    stream.  Returns the cli line and the kernel run's launches."""
+    import hashlib
+    import shutil
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.cb.history import SOURCE_RUN, HistoryStore
+    from repro_torch.faas.engine_vec import get_fallback_log, reset_fallback_log
+    out = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    history = out / "history.jsonl"
+    reset_fallback_log()
+    code, lines, wall, launches = _cli(
+        ["--suite", "kernels", "--n-calls", str(CB_CALLS), "--repeats", "1",
+         "--parallelism", "1", "--history", str(history)])
+    fallbacks = sorted(set(get_fallback_log()))
+    summaries = [json.loads(line) for line in lines if line.startswith("{")]
+    names = sorted(name for name, *_ in kb.DUETS)
+    if code != 0:
+        fail(f"cli --suite kernels: exit code {code}")
+    if (len(summaries) != 1 or summaries[0]["commits"] != 1
+            or summaries[0]["invocations"] != CB_CALLS * len(names)):
+        fail(f"cli --suite kernels: summaries {summaries}, want one of 1 commit and "
+             f"{CB_CALLS * len(names)} invocations")
+    records = HistoryStore(str(history)).records()
+    runs = [r for r in records if r.source == SOURCE_RUN]
+    if sorted(r.benchmark for r in runs) != names or any(r.invocations != CB_CALLS
+                                                         for r in runs):
+        fail(f"cli --suite kernels: history {[(r.benchmark, r.invocations) for r in runs]}")
+    if launches["K2"] < 1 or launches["K1"] != 0:
+        fail(f"cli --suite kernels: launches {launches}, want K2 at least once and K1 none")
+    log(f"cli --suite kernels: exit 0 in {wall:.2f} s, launches {launches}, "
+        f"engine fallbacks {fallbacks}")
+
+    code, lines, syn_wall, syn_launches = _cli(CLI_SYNTHETIC_ARGS)
+    syn = [line for line in lines if line.startswith("{")]
+    if code != 0 or len(syn) != 1 or any(syn_launches.values()):
+        fail(f"cli synthetic: exit code {code}, {len(syn)} summaries, launches {syn_launches}")
+    digest = hashlib.sha256(syn[0].encode()).hexdigest()
+    if digest != CLI_SYNTHETIC_SHA256:
+        fail(f"cli synthetic: summary {syn[0]} differs from the JAX package's "
+             f"(sha256 {digest})")
+    log(f"cli synthetic: exit 0 in {syn_wall:.2f} s, summary equals the JAX package's")
+    return {"kernels": summaries[0], "kernels_wall_s": wall, "k2_launches": launches["K2"],
+            "engine_fallbacks": fallbacks, "history_records": len(records),
+            "synthetic": json.loads(syn[0]), "synthetic_wall_s": syn_wall}, launches
+
+
+def _boot_sets():
+    """The phase 9 inputs, drawn from a seed: relative diffs in percent."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    ragged = [rng.normal(2.0, 5.0, n) for n in (45, 45, 44, 30, 12, 45, 0)]
+    ragged[1][7], ragged[2][0] = np.nan, np.inf
+    return {"k106_n45": [rng.normal(2.0, 5.0, 45) for _ in range(106)],
+            "k2120_n45": [rng.normal(2.0, 5.0, 45) for _ in range(2120)],
+            "ragged_nan_inf": ragged}
+
+
+def _median_call_ms(fn, n=7):
+    import torch
+    fn()                        # index matrices cached, card warm
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_bootstrap():
+    """Phase 9: the torch statistics backend on the card against NumPy."""
+    import numpy as np
+    from repro_torch.core import stats
+    from repro_torch.kernels import stats_boot
+    n_boot, confidence = 1000, 0.99
+    rows_per_chunk = stats_boot._GATHER_BYTES // (n_boot * 45 * 4)
+    out = {}
+    for name, arrays in _boot_sets().items():
+        def call(backend):
+            return stats.bootstrap_median_ci_batch(arrays, confidence=confidence,
+                                                   n_boot=n_boot, seed=0, backend=backend,
+                                                   device="cuda")
+        got, ref = call("torch"), call("numpy")
+        share = 0.0
+        for g, r in zip(got, ref):
+            if not np.array_equal(np.isnan(g), np.isnan(r)) or not np.array_equal(
+                    g[np.isinf(r)], r[np.isinf(r)]):
+                fail(f"bootstrap {name}: non-finite entries differ from NumPy's")
+            ok = np.isfinite(r)
+            dev = np.abs(g[ok] - r[ok]) / (BOOT_TOL["atol"] + BOOT_TOL["rtol"] * np.abs(r[ok]))
+            share = max(share, float(dev.max(initial=0.0)))
+        if share > 1.0:
+            fail(f"bootstrap {name}: torch backend {share:.3f} of the tolerance off NumPy's")
+        out[name] = {"k": len(arrays), "max_tolerance_share": share,
+                     "torch_ms": _median_call_ms(lambda: call("torch")),
+                     "numpy_ms": _median_call_ms(lambda: call("numpy"))}
+        if name.startswith("k"):
+            out[name]["gather_chunks"] = -(-len(arrays) // rows_per_chunk)
+        log(f"bootstrap {name}: {json.dumps(out[name])}")
+    return out
+
+
 def _serve_times(res, prefill_warm_ms, checks):
     cfg = res.lm.cfg
     return {"arch": cfg.name, "layers": cfg.num_layers, "batch": 4, "prompt_len": 1024,
@@ -768,14 +913,16 @@ _TIME_KEYS = ("ms", "device_ms", "fma_ms", "plain_ms", "library_ms", "library_de
               "bound_ms", "bound_by")
 
 
-def _kernel_line(name, source, replaces, launches, duet_launches, max_abs_err, t):
+def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches, max_abs_err,
+                 t):
     """One kernel of the serve paths: its tensor-core variant, which the bf16
     main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs.
     ``launches`` counts the serve run, ``duet_launches`` the pipeline run of
-    phase 7."""
+    phase 7, ``cli_launches`` the command line's kernel-suite run of phase 8."""
     return {"name": name, "route": "cuda", "variant": "tc", "source": source,
             "replaces": replaces, "launches": launches, "duet_launches": duet_launches,
-            "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS}}
+            "cli_launches": cli_launches, "max_abs_err": max_abs_err,
+            **{k: t[k] for k in _TIME_KEYS}}
 
 
 def main():
@@ -813,6 +960,15 @@ def main():
     print(json.dumps({"duets": {**duets, "checks": duet_checks,
                                 "phase_s": time.perf_counter() - t_cb}}))
 
+    t_cli = time.perf_counter()
+    cli_line, cli_launches = run_cli()
+    print(json.dumps({"cli": {**cli_line, "phase_s": time.perf_counter() - t_cli}}))
+    t_boot = time.perf_counter()
+    boot = check_bootstrap()
+    print(json.dumps({"bootstrap": {**boot, "n": 45, "n_boot": 1000, "confidence": 0.99,
+                                    "tolerance": BOOT_TOL,
+                                    "phase_s": time.perf_counter() - t_boot}}))
+
     times = {
         "card": card,
         "build_s": build_s,
@@ -832,10 +988,10 @@ def main():
     print(json.dumps({"kernels": [
         _kernel_line("K1 flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:32", k1_launches,
-                     duet_launches["K1"], k1_err, k1),
+                     duet_launches["K1"], cli_launches["K1"], k1_err, k1),
         _kernel_line("K2 ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:31", k2_launches,
-                     duet_launches["K2"], k2_err, k2),
+                     duet_launches["K2"], cli_launches["K2"], k2_err, k2),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

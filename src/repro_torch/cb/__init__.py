@@ -31,9 +31,8 @@ evaluator (faas/engine.py + core/controller.py) into that pipeline:
     RegressionDetector  changepoint/CUSUM over the history: flags slow
       (detect.py)       drifts no single pairwise comparison can see
 
-`Pipeline` (pipeline.py) orchestrates the layers per commit.  The
-command-line entry point (cb/cli.py in the JAX package) is not ported yet
-(ROADMAP.md §1).
+`Pipeline` (pipeline.py) orchestrates the layers per commit;
+`repro_torch.cb.cli` is the command-line/CI entry point.
 """
 from repro_torch.cb.cache import ResultCache, config_digest
 from repro_torch.cb.commits import (Commit, DriftSpec, StreamConfig, code_digest,

@@ -58,11 +58,10 @@ class PipelineConfig:
     seed: int = 0
     max_staleness: int = 5
     adaptive: bool = False          # attach the AdaptiveController per run
-    engine: object = None           # scheduler core: "reference" (None =
-    #                                 process default, the same scalar
-    #                                 loop until the vectorised engine is
-    #                                 ported; reports are bit-identical
-    #                                 either way)
+    engine: object = None           # scheduler core: "fast"/"reference"
+    #                                 (None = process default, i.e. the
+    #                                 vectorized engine; reports are
+    #                                 bit-identical either way)
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     chaos: object = None            # faas/chaos.py ChaosConfig (None = calm;
     #                                 zero intensity is a tested identity)

@@ -54,8 +54,7 @@ class BenchmarkSuite:
             engine: Optional[str] = None) -> SuiteRunResult:
         """`chaos` is a faas/chaos.py ChaosConfig for simulated suites;
         realtime suites must reject a non-None value.  `engine` selects
-        the scheduler core ("reference"; None = process default; "fast"
-        raises until the vectorised engine is ported)."""
+        the scheduler core ("fast"/"reference"; None = process default)."""
         raise NotImplementedError
 
     def job_workloads(self, benchmarks: List[str], commit: Commit) -> Dict:
@@ -115,10 +114,8 @@ class SyntheticSuite(BenchmarkSuite):
 
     def __init__(self, workloads: Optional[Dict] = None):
         if workloads is None:
-            raise NotImplementedError(
-                "the default 106-benchmark workloads come from "
-                "core/experiment.py, which is not ported yet: ROADMAP.md §1, "
-                "core/experiment.py and autotune.py; pass workloads=")
+            from repro_torch.core.experiment import victoriametrics_like_suite
+            workloads = victoriametrics_like_suite()
         self.workloads = workloads
 
     def benchmark_names(self) -> List[str]:

@@ -135,8 +135,6 @@ def _pairseq_columns(pairs):
     (timing columns round-trip bit-exactly through materialization, so
     the column path and the object path see identical floats)."""
     try:
-        # the port's engine_vec has no PairSeq until the vectorised engine
-        # lands (ROADMAP.md §1, "the rest of faas/engine_vec.py")
         from repro_torch.faas.engine_vec import PairSeq
     except ImportError:                       # pragma: no cover
         return None

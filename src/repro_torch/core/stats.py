@@ -417,23 +417,28 @@ def bootstrap_median_ci_batch(arrays: Sequence[np.ndarray], *,
                               seed: int = 0,
                               backend: str = "numpy",
                               robust: str = "none",
-                              robust_k: float = DEFAULT_ROBUST_K) -> tuple:
+                              robust_k: float = DEFAULT_ROBUST_K,
+                              device="cuda") -> tuple:
     """Vectorized `bootstrap_median_ci` over many (possibly ragged) arrays.
 
     Returns (med, lo, hi) float64 arrays aligned with `arrays`; empty
     inputs yield NaN entries.  The default NumPy backend is bit-for-bit
     equal to calling the scalar function per array with the same
-    (confidence, n_boot, seed, robust); any other backend raises
-    ``ValueError`` until the accelerator backend is ported.  The robust
+    (confidence, n_boot, seed, robust); ``backend="torch"`` runs the same
+    resamples through PyTorch on ``device`` (kernels/stats_boot.py) and
+    agrees to float tolerance.  The robust
     fencing is applied per array *before* the length-grouping, so a
     trimmed array simply joins the block of its trimmed length and the
     scalar/batched parity carries over unchanged."""
     if robust != "none":
         arrays = [_robust_view(np.asarray(a, dtype=np.float64), robust,
                                robust_k) for a in arrays]
-    # the accelerator backend (a torch twin of the JAX package's
-    # kernels/stats_boot.py) is ROADMAP.md §1 "Bootstrap analysis"; until
-    # it lands every backend but "numpy" is unknown here
+    if backend == "torch":
+        from repro_torch.kernels.stats_boot import \
+            bootstrap_median_ci_batch_torch
+        return bootstrap_median_ci_batch_torch(
+            arrays, confidence=confidence, n_boot=n_boot, seed=seed,
+            device=device)
     if backend != "numpy":
         raise ValueError(f"unknown stats backend {backend!r}")
     k = len(arrays)
@@ -474,14 +479,14 @@ def detect_changes_batch(items: Iterable[tuple], *,
                          n_boot: int = DEFAULT_BOOTSTRAP, seed: int = 0,
                          min_results: int = 10,
                          backend: str = "numpy", robust: str = "none",
-                         robust_k: float = DEFAULT_ROBUST_K
+                         robust_k: float = DEFAULT_ROBUST_K, device="cuda"
                          ) -> Dict[str, "ChangeResult"]:
     """Vectorized `detect_change` over a whole suite.
 
     `items` yields ``(benchmark, v1, v2)`` triples; the returned dict (in
     input order, below-`min_results` benchmarks omitted) is bit-for-bit
     what a per-benchmark `detect_change` loop would produce (NumPy
-    backend, the only one the port has)."""
+    backend; ``backend="torch"`` agrees to float tolerance)."""
     names: list = []
     lens: list = []
     diffs: list = []
@@ -496,7 +501,7 @@ def detect_changes_batch(items: Iterable[tuple], *,
     med, lo, hi = bootstrap_median_ci_batch(diffs, confidence=confidence,
                                             n_boot=n_boot, seed=seed,
                                             backend=backend, robust=robust,
-                                            robust_k=robust_k)
+                                            robust_k=robust_k, device=device)
     out: Dict[str, ChangeResult] = {}
     for i, name in enumerate(names):
         m, l, h = float(med[i]), float(lo[i]), float(hi[i])

@@ -15,10 +15,17 @@ billing.  Simulated backends (``LambdaLikeBackend``, ``GCFLikeBackend``,
 ``LocalDuetBackend`` runs real duets on host threads in wall-clock time,
 which is how the kernel-duet suite times its PyTorch duets on the card.
 
-``make_engine`` returns the scalar engine for ``engine=None`` and
-``"reference"``; the vectorised engine, fault injection (``chaos.py``,
-``traces.py``) and the observability sinks are not ported yet (ROADMAP.md
-§1).
+``VectorEngine`` (engine_vec.py) is the same scheduler as wave-batched
+NumPy arrays, bit-for-bit identical to ``ExecutionEngine``; runs it
+cannot vectorise (streaming observers, shared warm pools, realtime
+backends, active chaos) fall back to the scalar loop and are logged.
+``make_engine(backend, cfg, engine="fast"|"reference"|None)`` is the
+factory, "fast" the default.
+
+``ChaosBackend`` (chaos.py) wraps a virtual-time backend with seeded
+performance regimes (traces.py) and injected faults; at zero intensity it
+is an exact identity.  The observability sinks are not ported yet
+(ROADMAP.md §1, "the rest of obs/"), so the hook sites stay off.
 """
 from repro_torch.faas.backends import (AZURE_PROFILE, AzureLikeBackend,
                                        GCF_PROFILE, GCFLikeBackend,
@@ -30,7 +37,8 @@ from repro_torch.faas.engine import (CompletedInvocation, EngineConfig,
                                      EngineObserver, EngineReport,
                                      ExecutionEngine, FanoutObserver,
                                      Instance, InvocationOutcome, WarmPool)
-from repro_torch.faas.engine_vec import make_engine, set_default_engine
+from repro_torch.faas.engine_vec import (VectorEngine, make_engine,
+                                         set_default_engine)
 from repro_torch.faas.platform import (FaaSPlatformConfig, SimReport,
                                        SimWorkload, SimulatedFaaS,
                                        SimulatedVM, VMPlatformConfig,
@@ -43,6 +51,7 @@ __all__ = [
     "Instance", "InvocationOutcome", "LAMBDA_PROFILE", "LambdaLikeBackend",
     "LocalDuetBackend", "PROVIDER_PROFILES", "ProviderProfile",
     "SimFaaSBackend", "SimReport", "SimWorkload", "SimulatedFaaS",
-    "SimulatedVM", "VMBackend", "VMPlatformConfig", "WarmPool",
-    "make_engine", "make_provider_backend", "set_default_engine",
+    "SimulatedVM", "VMBackend", "VMPlatformConfig", "VectorEngine",
+    "WarmPool", "make_engine", "make_provider_backend",
+    "set_default_engine",
 ]

@@ -132,9 +132,10 @@ def make_provider_backend(workloads: Dict[str, SimWorkload], provider: str,
     `SimulatedFaaS` bit-for-bit; the other providers use their registered
     `ProviderProfile`s directly.
 
-    `chaos` (a faas/chaos.py `ChaosConfig` in the JAX package) would wrap
-    the backend in the fault-injection layer, which the port does not
-    have yet: any config but None raises."""
+    `chaos` (a faas/chaos.py `ChaosConfig`) wraps the backend in the
+    fault-injection layer; a zero-intensity config is an exact identity
+    (conformance-tested), so callers can thread a chaos knob through
+    unconditionally."""
     from repro_torch.faas.backends import PROVIDER_PROFILES
     if provider == "lambda":
         backend = SimulatedFaaS(workloads,
@@ -146,9 +147,8 @@ def make_provider_backend(workloads: Dict[str, SimWorkload], provider: str,
         backend = SimFaaSBackend(workloads, profile, memory_mb=memory_mb,
                                  seed=seed, start_time_s=start_time_s)
     if chaos is not None:
-        raise NotImplementedError(
-            "fault injection (faas/chaos.py) is not ported yet: ROADMAP.md "
-            "§1, faas/chaos.py and traces.py")
+        from repro_torch.faas.chaos import ChaosBackend
+        backend = ChaosBackend(backend, chaos)
     return backend
 
 
@@ -174,7 +174,7 @@ class SimulatedFaaS:
 
     def run_suite(self, plan: SuitePlan, *, parallelism: int = 150,
                   observer: Optional[EngineObserver] = None,
-                  engine: Optional[str] = None) -> SimReport:
+                  engine: str = "fast") -> SimReport:
         from repro_torch.faas.engine_vec import make_engine
         eng = make_engine(self.make_backend(),
                           EngineConfig(parallelism=parallelism),
@@ -209,7 +209,7 @@ class SimulatedVM:
 
     def run_suite(self, plan: SuitePlan,
                   observer: Optional[EngineObserver] = None,
-                  engine: Optional[str] = None) -> SimReport:
+                  engine: str = "fast") -> SimReport:
         from repro_torch.faas.engine_vec import make_engine
         backend = VMBackend(self.w, self.cfg, seed=self.seed)
         eng = make_engine(backend, EngineConfig(parallelism=self.cfg.n_vms),

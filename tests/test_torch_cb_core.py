@@ -96,10 +96,17 @@ def test_bootstrap_median_ci_batch_matches_jax_on_ragged_input():
 
 
 def test_stats_has_only_the_numpy_backend():
+    """"jax" stays an unknown backend in the port; "torch" (here on the CPU)
+    agrees with NumPy at tests/test_stats_batch.py's tolerance."""
     with pytest.raises(ValueError, match="unknown stats backend 'jax'"):
         stats.bootstrap_median_ci_batch([np.ones(12)], backend="jax")
     with pytest.raises(ValueError, match="unknown stats backend 'jax'"):
         stats.detect_changes_batch([("b", np.ones(12), np.ones(12))], backend="jax")
+    rng = np.random.default_rng(0)
+    arrays = [rng.normal(0, 1, n) for n in (45, 45, 128, 31, 10)]
+    got = stats.bootstrap_median_ci_batch(arrays, seed=3, backend="torch", device="cpu")
+    for g, r in zip(got, stats.bootstrap_median_ci_batch(arrays, seed=3)):
+        assert np.allclose(g, r, rtol=1e-5, atol=1e-6)
 
 
 def _suite_timings(seed):

@@ -87,18 +87,18 @@ def test_provider_backends_by_name_match_jax():
 
 
 def test_simulated_platform_wrappers_match_jax():
-    """The wrappers take the port's default engine (the scalar loop); the
-    JAX package's default is its vectorised engine, whose reports it holds
-    identical to the scalar loop's."""
+    """The wrappers take each package's default engine, the vectorised one,
+    whose pairs come back as a lazy ``PairSeq``."""
     got = platform.SimulatedFaaS(_workloads(platform), seed=2).run_suite(
         _plan(rmit), parallelism=30)
     ref = jax_platform.SimulatedFaaS(_workloads(jax_platform), seed=2).run_suite(
         _plan(jax_rmit), parallelism=30)
-    assert canon(got) == canon(replace(ref, pairs=list(ref.pairs)))
+    assert canon(replace(got, pairs=list(got.pairs))) == canon(replace(ref, pairs=list(ref.pairs)))
     got = platform.SimulatedVM(_workloads(platform)).run_suite(_plan(rmit, n_calls=4))
     ref = jax_platform.SimulatedVM(_workloads(jax_platform)).run_suite(
         _plan(jax_rmit, n_calls=4))
-    assert got.pairs and canon(got) == canon(replace(ref, pairs=list(ref.pairs)))
+    assert got.pairs and canon(replace(got, pairs=list(got.pairs))) == canon(
+        replace(ref, pairs=list(ref.pairs)))
 
 
 class FakeDuets:
@@ -179,21 +179,42 @@ def test_adaptive_controller_matches_jax():
 
 
 def test_engine_factory_has_the_scalar_engine_only():
+    """The factory gives the vectorised engine for "fast" and by default,
+    as in JAX, and the scalar one for "reference"."""
     be = backends.LambdaLikeBackend(_workloads(platform))
-    assert type(engine_vec.make_engine(be)) is engine.ExecutionEngine
+    assert engine_vec._DEFAULT_ENGINE == "fast"
+    assert type(engine_vec.make_engine(be)) is engine_vec.VectorEngine
+    assert type(engine_vec.make_engine(be, engine="fast")) is engine_vec.VectorEngine
     assert type(engine_vec.make_engine(be, engine="reference")) is engine.ExecutionEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine_vec.make_engine(be, engine="fast")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine_vec.set_default_engine("fast")
     with pytest.raises(ValueError, match="unknown engine"):
         engine_vec.make_engine(be, engine="turbo")
-    engine_vec.set_default_engine("reference")
-    assert engine_vec._DEFAULT_ENGINE == "reference"
+    with pytest.raises(ValueError, match="unknown engine"):
+        engine_vec.set_default_engine("turbo")
+    try:
+        engine_vec.set_default_engine("reference")
+        assert type(engine_vec.make_engine(be)) is engine.ExecutionEngine
+    finally:
+        engine_vec.set_default_engine("fast")
+    assert type(engine_vec.make_engine(be)) is engine_vec.VectorEngine
 
 
 def test_fault_injection_is_not_ported_yet():
+    """``chaos=`` now wraps the backend in the port's ``ChaosBackend``; a run
+    through it equals JAX's, fault counts included."""
+    from repro.faas import chaos as jax_chaos
+    from repro_torch.faas import chaos
     backend = platform.make_provider_backend(_workloads(platform), "gcf", chaos=None)
     assert backend.profile is backends.GCF_PROFILE
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        platform.make_provider_backend(_workloads(platform), "gcf", chaos=object())
+
+    def run(plat_mod, eng_mod, chaos_mod, rmit_mod):
+        be = plat_mod.make_provider_backend(_workloads(plat_mod), "gcf", seed=4,
+                                            chaos=chaos_mod.moderate_chaos(seed=3))
+        assert isinstance(be, chaos_mod.ChaosBackend) and be.inner.profile.name == "gcf"
+        rep = eng_mod.ExecutionEngine(be, eng_mod.EngineConfig(parallelism=40,
+                                                               max_retries=1)).run(
+            _plan(rmit_mod))
+        return rep, dict(be.stats), be.ground_truth()
+    got = run(platform, engine, chaos, rmit)
+    ref = run(jax_platform, jax_engine, jax_chaos, jax_rmit)
+    assert sum(got[1].values()) > 0
+    assert canon(got) == canon(ref)

@@ -4,8 +4,8 @@ and commit stream of tests/test_cb_pipeline.py.
 
 Virtual time makes every number of a run deterministic, wall time and cost
 included, and both sides run the same NumPy code: reports, events, cache
-counts and history records must agree bit for bit.  The JAX side runs its
-scalar engine (``engine="reference"``), the one the port has.
+counts and history records must agree bit for bit.  Both sides run their
+default engine, the vectorised one (``engine="fast"``).
 """
 import json
 import sqlite3
@@ -53,8 +53,6 @@ def _stream(mod, cls):
 
 def _run(mod, cls, mode, *, history=None, cache=None, **kw):
     w, commits, _ = _stream(mod, cls)
-    if mod is jax_cb:
-        kw["engine"] = "reference"
     cfg = mod.PipelineConfig(mode=mode, parallelism=50, max_staleness=3, seed=2, **kw)
     pipe = mod.Pipeline(mod.SyntheticSuite(dict(w)), cfg, history=history, cache=cache)
     return pipe, pipe.run_stream(commits)
@@ -129,17 +127,22 @@ def test_detector_scan_matches_jax():
 
 
 def test_what_the_port_lacks_names_its_roadmap_item():
+    """The service calls still raise (service/ is not ported); the paper's
+    suite (``SyntheticSuite()``) and either engine run and equal JAX."""
     _, commits, _ = _stream(cb, SimWorkload)
     pipe = cb.Pipeline(cb.SyntheticSuite(_workloads(SimWorkload)))
     for call in (lambda: pipe.submit_stream(commits, service=None),
                  lambda: pipe.collect_service([]),
                  lambda: pipe.run_stream_service(commits, service=None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1, service/"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cb.SyntheticSuite()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _run(cb, SimWorkload, "selective", engine="fast")
+    suite, ref_suite = cb.SyntheticSuite(), jax_cb.SyntheticSuite()
+    assert len(suite.workloads) == 106
+    assert canon(suite.workloads) == canon(ref_suite.workloads)
+    for engine in ("fast", "reference"):
+        _, rep = _run(cb, SimWorkload, "selective", engine=engine)
+        _, ref = _run(jax_cb, JaxSimWorkload, "selective", engine=engine)
+        assert canon(rep) == canon(ref)
 
 
 def test_run_pipeline_resolves_the_suite_by_name():

@@ -194,3 +194,24 @@ def test_k2_tc_bf16_operands_matches_plain(shape, with_h0):
     yr, sr = ks.ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, h0=h0)
     torch.testing.assert_close(y.float(), yr.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(st, sr, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [106, 2120])
+def test_bootstrap_on_card_matches_numpy(k):
+    """The statistics engine's torch backend on the card (k = 2,120 spans
+    several gather chunks) against the NumPy path, at
+    tests/test_stats_batch.py's tolerance; a ragged NaN/inf set too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the torch stats backend has no CPU fallback")
+    import numpy as np
+    from repro_torch.core import stats
+    rng = np.random.default_rng(k)
+    arrays = [rng.normal(0.02, 0.05, 45) for _ in range(k)]
+    arrays += [rng.normal(0, 1, n) for n in (44, 10, 0)]
+    arrays[1][5], arrays[2][0] = np.nan, np.inf
+    got = stats.bootstrap_median_ci_batch(arrays, n_boot=1000, seed=0, backend="torch",
+                                          device="cuda")
+    ref = stats.bootstrap_median_ci_batch(arrays, n_boot=1000, seed=0)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-6, equal_nan=True)
