@@ -59,7 +59,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ragged set with a NaN and an inf row, held to the NumPy backend at
    rtol 1e-5 / atol 1e-6; both backends timed (median of 7 synchronised
    calls, index matrices cached).  The ``bootstrap`` JSON line gives the
-   largest deviation as a share of the tolerance and the times.
+   largest deviation as a share of the tolerance and the times;
+10. obs and service: the command line again, with observability on.
+   (a) ``--suite kernels`` with ``--trace --metrics-out --slo
+   --health-out`` on the card: one summary of 1 commit and 36
+   invocations, K2 launched and K1 not, a valid trace whose only span is
+   the commit's (its length, the engine's host wall time, is printed as
+   a share of the run's wall time and held within 25%), the commit and
+   selection counters, a health verdict and the exit code it implies;
+   (b) the synthetic run of phase 8 with the same four flags: the same
+   summary (obs changes nothing), and the trace size, verdict, alert and
+   incident counts and exit code that the JAX command line gives;
+   (c) the benchmarking service, host only: ``--jobs 16`` and a planned
+   ``--deadline 900`` run, each summary line equal to the JAX command
+   line's by SHA-256, and ``--suite kernels --jobs 2`` refused with exit
+   2; (d) ``repro_torch.obs.watch`` on the timeout-storm scenario, whose
+   health file must equal the JAX tool's by SHA-256.  Output files go to
+   ``build/chip_smoke_obs/``; the ``obs_service`` JSON line gives each
+   part's wall seconds, verdicts, exit codes and launches.
 
 The last line of standard output is the device line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
@@ -97,6 +114,23 @@ CB_CALLS = 12        # calls per benchmark of the phase 7 pipeline run
 CLI_SYNTHETIC_ARGS = ["--commits", "20", "--providers", "lambda", "--mode",
                       "selective_cached", "--seed", "0"]
 CLI_SYNTHETIC_SHA256 = "803ea671580228c1287737deb5a4b768abfb38bf62026ee6656673f777e5a786"
+# phase 10, each pinned from the JAX package's command line on a CPU:
+# `python -m repro.cb.cli` + CLI_SYNTHETIC_ARGS + `--trace T --metrics-out M
+# --slo --health-out H` records 2,040 trace events (metadata not counted),
+# ends in verdict breach with 86 alerts and 3 incidents, and exits 4
+OBS_SYNTHETIC = dict(trace_events=2040, verdict="breach", alerts=86, incidents=3, exit=4)
+# the summary line of `python -m repro.cb.cli --jobs 16 --commits 6 --providers
+# lambda --seed 0` (digest 2bd2468995d43fe2, 80 jobs), and that of `... --jobs 4
+# --commits 4 --deadline 900 --seed 0` (digest c22b389ec35d714e, 12 jobs,
+# planned lambda at 1,792 MB), by SHA-256
+SERVICE_ARGS = ["--jobs", "16", "--commits", "6", "--providers", "lambda", "--seed", "0"]
+SERVICE_SHA256 = "71983246eed066469fb4cf2941a1cd687c2e1187db22d02f850f077142de8d5c"
+PLANNED_ARGS = ["--jobs", "4", "--commits", "4", "--deadline", "900", "--seed", "0"]
+PLANNED_SHA256 = "6f5e7561465e0bde593763dc21733b5f352b59c88a90b43a1da255977805888b"
+# the health file of `python -m repro.obs.watch --scenario timeout_storm --quick
+# --expect-incident --out H` (verdict warn: 4 alerts, 2 anomalies, 1 incident)
+WATCH_ARGS = ["--scenario", "timeout_storm", "--quick", "--expect-incident"]
+WATCH_HEALTH_SHA256 = "2a0a7be8160afe14579321042836ab41943bfdadde1ff6d053e176a13f63b6c7"
 BOOT_TOL = dict(rtol=1e-5, atol=1e-6)     # tests/test_stats_batch.py's tolerance
 # v1 against v2 of each duet, at the JAX tests' tolerances (tests/
 # test_attention.py:28, tests/test_ssm.py:32; rms_norm in float32)
@@ -778,18 +812,27 @@ def run_cb():
     return line, launches
 
 
+def _sha256(text):
+    import hashlib
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
 def _cli(argv):
     """``repro_torch.cb.cli.main(argv)`` in this process: (exit code, stdout
-    lines, wall s, {kernel: launches}), the counts set to 0 just before."""
+    lines, wall s, {kernel: launches}), the counts set to 0 just before.
+    The command line installs its observability context and leaves it in
+    place; it is removed after the run, so that the next run starts clean."""
     import contextlib
     import io
     from repro_torch.cb import cli
+    from repro_torch.obs import set_obs
     wrappers = _reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         code = cli.main(argv)
     wall = time.perf_counter() - t0
+    set_obs(None)
     return (code, buf.getvalue().splitlines(), wall,
             {k: w.launches for k, w in wrappers.items()})
 
@@ -797,7 +840,6 @@ def _cli(argv):
 def run_cli():
     """Phase 8: the command line, on the kernel suite and on a synthetic
     stream.  Returns the cli line and the kernel run's launches."""
-    import hashlib
     import shutil
     from repro_torch.benchmarks import kernel_bench as kb
     from repro_torch.cb.history import SOURCE_RUN, HistoryStore
@@ -833,7 +875,7 @@ def run_cli():
     syn = [line for line in lines if line.startswith("{")]
     if code != 0 or len(syn) != 1 or any(syn_launches.values()):
         fail(f"cli synthetic: exit code {code}, {len(syn)} summaries, launches {syn_launches}")
-    digest = hashlib.sha256(syn[0].encode()).hexdigest()
+    digest = _sha256(syn[0])
     if digest != CLI_SYNTHETIC_SHA256:
         fail(f"cli synthetic: summary {syn[0]} differs from the JAX package's "
              f"(sha256 {digest})")
@@ -841,6 +883,133 @@ def run_cli():
     return {"kernels": summaries[0], "kernels_wall_s": wall, "k2_launches": launches["K2"],
             "engine_fallbacks": fallbacks, "history_records": len(records),
             "synthetic": json.loads(syn[0]), "synthetic_wall_s": syn_wall}, launches
+
+
+def _obs_files(out, tag):
+    """The four observability flags, writing into ``out`` under ``tag``."""
+    paths = {k: out / f"{tag}.{k}.json" for k in ("trace", "metrics", "health")}
+    return paths, ["--trace", str(paths["trace"]), "--metrics-out", str(paths["metrics"]),
+                   "--slo", "--health-out", str(paths["health"])]
+
+
+def _read_obs(paths):
+    """(trace events without metadata, trace schema errors, metrics
+    snapshot, health verdict) of one observed run."""
+    from repro_torch.obs import validate_chrome_trace
+    trace = json.loads(paths["trace"].read_text())
+    events = [e for e in trace["traceEvents"] if e["ph"] != "M"]
+    return (events, validate_chrome_trace(trace), json.loads(paths["metrics"].read_text()),
+            json.loads(paths["health"].read_text()))
+
+
+def run_obs_service(kernels_off_wall):
+    """Phase 10: the command line with observability on (the kernel suite on
+    the card, the synthetic run on the host), the benchmarking service and
+    the watch tool.  Returns the obs_service line and the launches of (a)."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.cb.cli import EXIT_BREACH, EXIT_INFEASIBLE, resolve_exit_code
+    from repro_torch.obs import watch
+    out = ROOT / "build" / "chip_smoke_obs"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    line = {}
+
+    # (a) the observed kernel suite on the card
+    paths, flags = _obs_files(out, "kernels")
+    code, lines, wall, launches = _cli(
+        ["--suite", "kernels", "--n-calls", str(CB_CALLS), "--repeats", "1",
+         "--parallelism", "1"] + flags)
+    summaries = [json.loads(x) for x in lines if x.startswith("{")]
+    n_inv = CB_CALLS * len(kb.DUETS)
+    if (len(summaries) != 1 or summaries[0]["commits"] != 1
+            or summaries[0]["invocations"] != n_inv):
+        fail(f"obs --suite kernels: summaries {summaries}, want one of 1 commit and "
+             f"{n_inv} invocations")
+    if launches["K2"] < 1 or launches["K1"] != 0:
+        fail(f"obs --suite kernels: launches {launches}, want K2 at least once and K1 none")
+    events, errors, metrics, health = _read_obs(paths)
+    if errors or [(e["ph"], e.get("cat")) for e in events] != [("X", "commit")]:
+        fail(f"obs --suite kernels: trace errors {errors}, events "
+             f"{[(e['ph'], e.get('cat'), e['name']) for e in events]}, want one commit span")
+    span_share = events[0]["dur"] / 1e6 / wall
+    counters = {c["name"]: (c["labels"], c["value"]) for c in metrics["counters"]}
+    want = {"cb.commits": ({"provider": "local"}, 1.0),
+            "cb.benchmarks_selected": ({"provider": "local"}, float(len(kb.DUETS)))}
+    if any(counters.get(k) != v for k, v in want.items()):
+        fail(f"obs --suite kernels: counters {counters}, want {want}")
+    verdict = health["verdict"]
+    want_code = resolve_exit_code(0, EXIT_BREACH if verdict == "breach" else 0)
+    if verdict not in ("healthy", "warn", "breach") or code != want_code:
+        fail(f"obs --suite kernels: verdict {verdict!r}, exit code {code} (want {want_code})")
+    log(f"obs --suite kernels: exit {code} in {wall:.2f} s (phase 8, obs off: "
+        f"{kernels_off_wall:.2f} s), commit span {span_share:.3f} of the wall, verdict "
+        f"{verdict}, launches {launches}")
+    if abs(span_share - 1.0) > 0.25:
+        fail(f"obs --suite kernels: the commit span is {span_share:.3f} of the run's wall time")
+    line["kernels"] = {"wall_s": wall, "obs_off_wall_s": kernels_off_wall,
+                       "commit_span_s": events[0]["dur"] / 1e6, "span_share": span_share,
+                       "verdict": verdict, "alerts": len(health["alerts"]), "exit": code,
+                       "launches": launches, "counters": {k: v[1] for k, v in counters.items()},
+                       "summary": summaries[0]}
+
+    # (b) the observed synthetic run: obs changes no number
+    paths, flags = _obs_files(out, "synthetic")
+    code, lines, wall, launches = _cli(CLI_SYNTHETIC_ARGS + flags)
+    syn = [x for x in lines if x.startswith("{")]
+    events, errors, _, health = _read_obs(paths)
+    got = dict(trace_events=len(events), verdict=health["verdict"],
+               alerts=len(health["alerts"]), incidents=len(health["incidents"]), exit=code)
+    if len(syn) != 1 or _sha256(syn[0]) != CLI_SYNTHETIC_SHA256:
+        fail(f"obs synthetic: summaries {syn} differ from the JAX package's")
+    if got != OBS_SYNTHETIC or errors or any(launches.values()):
+        fail(f"obs synthetic: {got}, trace errors {errors[:3]}, launches {launches}; "
+             f"want {OBS_SYNTHETIC} and no launch")
+    log(f"obs synthetic: exit {code} in {wall:.2f} s, summary and {json.dumps(got)} equal "
+        "the JAX package's")
+    line["synthetic"] = {"wall_s": wall, **got, "launches": launches}
+
+    # (c) the benchmarking service (host only)
+    for name, argv, digest in (("service", SERVICE_ARGS, SERVICE_SHA256),
+                               ("planned", PLANNED_ARGS, PLANNED_SHA256)):
+        code, lines, wall, launches = _cli(argv)
+        summ = [x for x in lines if x.startswith("{")]
+        if code != 0 or len(summ) != 1 or _sha256(summ[0]) != digest or any(launches.values()):
+            fail(f"{name}: exit code {code}, summaries {summ}, launches {launches}; want exit "
+                 "0, no launch and the JAX package's summary line")
+        s_ = json.loads(summ[0])
+        log(f"{name}: exit 0 in {wall:.2f} s, {s_['jobs']} jobs, {s_['invocations']} "
+            f"invocations, ${s_['cost_usd']}, digest {s_['digest']}: equals the JAX package's")
+        line[name] = {"wall_s": wall, "exit": code, "launches": launches,
+                      **{k: s_[k] for k in ("jobs", "invocations", "cost_usd", "digest",
+                                            "planned_provider", "planned_memory_mb") if k in s_}}
+    code, lines, wall, launches = _cli(["--suite", "kernels", "--jobs", "2"])
+    if code != EXIT_INFEASIBLE or any(launches.values()):
+        fail(f"--suite kernels --jobs 2: exit code {code}, launches {launches}; want "
+             f"{EXIT_INFEASIBLE} and no launch")
+    line["kernels_service_refused"] = {"exit": code, "wall_s": wall}
+
+    # (d) the watch tool on the timeout-storm scenario
+    health_path = out / "watch.health.json"
+    wrappers = _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        code = watch.main(WATCH_ARGS + ["--out", str(health_path)])
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    text = health_path.read_text()
+    health = json.loads(text)
+    if code != 0 or _sha256(text) != WATCH_HEALTH_SHA256 or any(launches.values()):
+        fail(f"watch: exit code {code}, health sha256 {_sha256(text)}, launches {launches}; "
+             "want exit 0, no launch and the JAX tool's health file")
+    line["watch"] = {"wall_s": wall, "exit": code, "verdict": health["verdict"],
+                     "alerts": len(health["alerts"]), "anomalies": len(health["anomalies"]),
+                     "incidents": len(health["incidents"]), "launches": launches}
+    log(f"watch timeout_storm: exit 0 in {wall:.2f} s, {json.dumps(line['watch'])}: health "
+        "file equals the JAX tool's")
+    return line, line["kernels"]["launches"]
 
 
 def _boot_sets():
@@ -913,16 +1082,17 @@ _TIME_KEYS = ("ms", "device_ms", "fma_ms", "plain_ms", "library_ms", "library_de
               "bound_ms", "bound_by")
 
 
-def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches, max_abs_err,
-                 t):
+def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches,
+                 obs_launches, max_abs_err, t):
     """One kernel of the serve paths: its tensor-core variant, which the bf16
     main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs.
     ``launches`` counts the serve run, ``duet_launches`` the pipeline run of
-    phase 7, ``cli_launches`` the command line's kernel-suite run of phase 8."""
+    phase 7, ``cli_launches`` the command line's kernel-suite run of phase 8,
+    ``obs_launches`` the observed kernel-suite run of phase 10."""
     return {"name": name, "route": "cuda", "variant": "tc", "source": source,
             "replaces": replaces, "launches": launches, "duet_launches": duet_launches,
-            "cli_launches": cli_launches, "max_abs_err": max_abs_err,
-            **{k: t[k] for k in _TIME_KEYS}}
+            "cli_launches": cli_launches, "obs_launches": obs_launches,
+            "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS}}
 
 
 def main():
@@ -968,6 +1138,9 @@ def main():
     print(json.dumps({"bootstrap": {**boot, "n": 45, "n_boot": 1000, "confidence": 0.99,
                                     "tolerance": BOOT_TOL,
                                     "phase_s": time.perf_counter() - t_boot}}))
+    t_obs = time.perf_counter()
+    obs_line, obs_launches = run_obs_service(cli_line["kernels_wall_s"])
+    print(json.dumps({"obs_service": {**obs_line, "phase_s": time.perf_counter() - t_obs}}))
 
     times = {
         "card": card,
@@ -988,10 +1161,10 @@ def main():
     print(json.dumps({"kernels": [
         _kernel_line("K1 flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:32", k1_launches,
-                     duet_launches["K1"], cli_launches["K1"], k1_err, k1),
+                     duet_launches["K1"], cli_launches["K1"], obs_launches["K1"], k1_err, k1),
         _kernel_line("K2 ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:31", k2_launches,
-                     duet_launches["K2"], cli_launches["K2"], k2_err, k2),
+                     duet_launches["K2"], cli_launches["K2"], obs_launches["K2"], k2_err, k2),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -36,11 +36,6 @@ infeasible plan on one provider, a strict-fast fallback on another, and
 an SLO breach overall); the process exit code is then resolved
 deterministically by `EXIT_PRECEDENCE`: infeasible (2) beats engine
 fallback (3) beats SLO breach (4).
-
-Not ported yet: the service flags (`--jobs`, `--deadline`, `--budget`)
-need service/ and the observability flags (`--trace`, `--metrics-out`,
-`--slo`, `--health-out`) need the rest of obs/ (ROADMAP.md §1); both
-raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -65,12 +60,6 @@ EXIT_BREACH = 4         # `--slo` was armed and an objective breached
 #: suspect.  `main` resolves through this table from a single return
 #: site.
 EXIT_PRECEDENCE = (EXIT_INFEASIBLE, EXIT_FALLBACK, EXIT_BREACH)
-
-_NO_SERVICE = ("--jobs/--deadline/--budget need the benchmarking service "
-               "(service/), which is not ported yet: ROADMAP.md §1, service/")
-_NO_OBS = ("--trace/--metrics-out/--slo/--health-out need the tracer, "
-           "metrics and SLO monitors, which are not ported yet: "
-           "ROADMAP.md §1, the rest of obs/")
 
 
 def resolve_exit_code(*codes: int) -> int:
@@ -110,7 +99,9 @@ def _run_service(args, history, providers, modes) -> int:
     collapse through `resolve_exit_code`, so the winner is fixed by
     `EXIT_PRECEDENCE`, never by loop iteration order.
     """
-    raise NotImplementedError(_NO_SERVICE)
+    from repro_torch.service import (AdmissionError, BenchmarkService,
+                                     DeadlineCostPlanner, PlannerConfig,
+                                     ServiceConfig)
     if args.suite == "kernels":
         print("service mode needs a simulated suite (kernels run "
               "realtime); drop --jobs/--deadline/--budget", file=sys.stderr)
@@ -260,8 +251,14 @@ def main(argv=None) -> int:
     set_default_engine(args.engine)
 
     obs = None
-    if args.slo or args.trace or args.metrics_out or args.health_out:
-        raise NotImplementedError(_NO_OBS)
+    if args.slo or args.trace or args.metrics_out:
+        from repro_torch.obs import Observability, load_slos, set_obs
+        if args.slo:
+            specs = None if args.slo is True else load_slos(args.slo)
+            obs = Observability.monitoring(specs)
+        else:
+            obs = Observability.recording()
+        set_obs(obs)
 
     service_mode = args.jobs > 0 or args.deadline is not None \
         or args.budget is not None

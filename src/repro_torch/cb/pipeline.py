@@ -35,14 +35,10 @@ from repro_torch.cb.commits import Commit
 from repro_torch.cb.detect import DetectorConfig, RegressionDetector, RegressionEvent
 from repro_torch.cb.history import (HistoryRecord, HistoryStore, SOURCE_BASELINE,
                               SOURCE_CACHE, SOURCE_RUN, SOURCE_SKIP)
-from repro_torch.cb.registry import BenchmarkSuite, get_suite
+from repro_torch.cb.registry import BenchmarkSuite, _commit_seed, get_suite
 from repro_torch.cb.select import BenchmarkSelector, SelectorConfig
 
 MODES = ("full", "selective", "selective_cached")
-
-_NO_SERVICE = ("the benchmarking service (service/) is not ported yet: "
-               "ROADMAP.md §1, service/; run the stream inline with "
-               "run_stream")
 
 
 @dataclass
@@ -254,26 +250,99 @@ class Pipeline:
                               billed=billed, cost=cost, wall=wall)
 
     # ------------------------------------------------------------ service
-    # Running a stream as jobs of the benchmarking service needs service/,
-    # which the port does not have yet (ROADMAP.md §1, service/).
     def submit_stream(self, commits: List[Commit], service, *,
                       tenant: str = "tenant0", priority: float = 1.0,
                       deadline_s: Optional[float] = None,
-                      budget_usd: Optional[float] = None) -> list:
-        """Submit a whole commit stream as service jobs: not ported yet."""
-        raise NotImplementedError(_NO_SERVICE)
+                      budget_usd: Optional[float] = None
+                      ) -> List[_PendingCommit]:
+        """Submit a whole commit stream as service jobs (one job per
+        commit that needs measurement) instead of running inline.  The
+        returned pending list is consumed by `collect_service` after
+        `service.run()`; the service delivers each tenant's results in
+        submission order, so history stays causally consistent.
 
-    def collect_service(self, pending: list) -> PipelineReport:
-        """Finalize delivered service jobs: not ported yet."""
-        raise NotImplementedError(_NO_SERVICE)
+        Selection and cache lookups happen at submission time (they
+        depend only on fingerprints); measurements produced by jobs in
+        the same batch therefore cannot serve later submissions from the
+        cache — they land in the cache at delivery time for future
+        streams."""
+        from repro_torch.service.jobs import Job
+        if self.cfg.adaptive:
+            raise ValueError("adaptive stopping is an inline-run feature; "
+                             "service jobs run fixed plans chosen by the "
+                             "planner")
+        cfg = self.cfg
+        pending: List[_PendingCommit] = []
+        for commit in commits:
+            work = self._prepare(commit)
+            entry = _PendingCommit(commit, work)
+            if work is not None and work.to_measure:
+                job = Job(
+                    job_id=f"{tenant}/{commit.commit_id}", tenant=tenant,
+                    workloads=self.suite.job_workloads(work.to_measure,
+                                                       work.run_commit),
+                    n_calls=cfg.n_calls,
+                    repeats_per_call=cfg.repeats_per_call,
+                    priority=priority, deadline_s=deadline_s,
+                    budget_usd=budget_usd,
+                    seed=_job_seed(cfg.seed, commit),
+                    min_results=cfg.min_results,
+                    metadata={"suite": self.suite.name,
+                              "commit_id": commit.commit_id,
+                              "commit_index": commit.index},
+                    callback=entry.deliver)
+                service.submit(job, provider=cfg.provider,
+                               memory_mb=cfg.memory_mb,
+                               parallelism=cfg.parallelism)
+            pending.append(entry)
+        return pending
+
+    def collect_service(self, pending: List[_PendingCommit]
+                        ) -> PipelineReport:
+        """Finalize delivered jobs into the history (commit order) and
+        build the stream report — the service-mode tail of `run_stream`."""
+        runs: List[CommitRun] = []
+        for entry in pending:
+            if entry.work is None:
+                continue                     # stream baseline
+            if entry.work.to_measure and entry.result is None:
+                raise RuntimeError(
+                    f"commit {entry.commit.commit_id} was submitted but "
+                    f"never delivered — call service.run() first")
+            r = entry.result
+            if r is None:
+                runs.append(self._finalize(entry.commit, entry.work, {},
+                                           {}, {}, invocations=0,
+                                           billed=0.0, cost=0.0, wall=0.0))
+                continue
+            runs.append(self._finalize(
+                entry.commit, entry.work, r.changes,
+                r.benchmark_invocations, r.benchmark_billed_s,
+                invocations=r.invocations, billed=r.billed_seconds,
+                cost=r.cost_dollars, wall=r.end_s - r.start_s,
+                fully_measured=not r.preempted))
+        events = RegressionDetector(self.cfg.detector).scan(
+            self.history, provider=self.cfg.provider, mode=self.cfg.mode)
+        return PipelineReport(
+            suite=self.suite.name, provider=self.cfg.provider,
+            mode=self.cfg.mode, commits=runs, events=events,
+            cache_hits=self.cache.hits, cache_misses=self.cache.misses)
 
     def run_stream_service(self, commits: List[Commit], service, *,
                            tenant: str = "tenant0", priority: float = 1.0,
                            deadline_s: Optional[float] = None,
                            budget_usd: Optional[float] = None
                            ) -> PipelineReport:
-        """`run_stream` through the service: not ported yet."""
-        raise NotImplementedError(_NO_SERVICE)
+        """`run_stream` through the service: submit every commit as a job,
+        execute the service, collect.  With a shared service instance the
+        caller submits several pipelines first and calls `service.run()`
+        once — this convenience wrapper is the single-tenant path."""
+        pending = self.submit_stream(commits, service, tenant=tenant,
+                                     priority=priority,
+                                     deadline_s=deadline_s,
+                                     budget_usd=budget_usd)
+        service.run()
+        return self.collect_service(pending)
 
     # ------------------------------------------------- prepare / finalize
     def _prepare(self, commit: Commit) -> Optional["_CommitWork"]:
@@ -463,6 +532,13 @@ class Pipeline:
             cost_dollars=cost, wall_seconds=wall)
 
 
+def _job_seed(seed: int, commit: Commit) -> int:
+    """Service jobs reuse the registry's per-commit seed stream, so a
+    commit measured through the service draws the same RMIT plan as the
+    same commit measured inline."""
+    return _commit_seed(seed, commit)
+
+
 @dataclass
 class _CommitWork:
     """Prepared (pre-measurement) state of one non-baseline commit."""
@@ -475,6 +551,19 @@ class _CommitWork:
     run_commit: Commit                      # A/A-stripped view for the run
     pair_fps: Dict[str, tuple]
     prev_measured: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class _PendingCommit:
+    """One commit travelling through the service: prepared work plus the
+    JobResult the service delivers (None for the baseline and for
+    commits with nothing to measure)."""
+    commit: Commit
+    work: Optional[_CommitWork]
+    result: object = None                   # repro_torch.service.JobResult
+
+    def deliver(self, result) -> None:
+        self.result = result
 
 
 def _prorate(total_cost: float, total_billed: float, billed_b: float) -> float:

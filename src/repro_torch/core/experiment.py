@@ -31,11 +31,6 @@ from repro_torch.faas.platform import (SimReport, SimulatedVM, SimWorkload,
 
 N_BENCHMARKS = 106
 
-# the experiments that run jobs through the benchmarking service raise
-# this until service/ is ported; their bodies are the JAX package's
-_NO_SERVICE = ("the benchmarking service (service/) is not ported yet: "
-               "ROADMAP.md §1, service/")
-
 
 def victoriametrics_like_suite(seed: int = 42) -> Dict[str, SimWorkload]:
     """106 synthetic microbenchmarks with a paper-shaped ground truth:
@@ -460,7 +455,7 @@ def _execute_candidate(cand, suite: Dict[str, SimWorkload], *,
                        seed: int) -> ExperimentResult:
     """Run one planner candidate on the platform model it priced."""
     from repro_torch.faas.backends import PROVIDER_PROFILES
-    raise NotImplementedError(_NO_SERVICE)
+    from repro_torch.service.planner import VM_PROVIDER
     if cand.provider == VM_PROVIDER:
         plan = rmit.make_plan(sorted(suite), n_calls=cand.n_calls,
                               repeats_per_call=cand.repeats_per_call,
@@ -492,7 +487,7 @@ def run_service_pareto_experiment(*, deadline_s: float = 900.0,
     """Sweep the planner's candidate space, execute the (cost, makespan)
     frontier plus the chosen plan, and compare against the measured VM
     baseline."""
-    raise NotImplementedError(_NO_SERVICE)
+    from repro_torch.service.planner import DeadlineCostPlanner, pareto_frontier
     suite = victoriametrics_like_suite(seed=suite_seed)
     planner = DeadlineCostPlanner()
     cands = planner.candidates(suite, seed=seed)
@@ -563,7 +558,7 @@ def run_multi_tenant_experiment(n_tenants: int, *,
     pure function of (n_tenants, provider, knobs, seed)."""
     from repro_torch.cb import (Pipeline, PipelineConfig, StreamConfig,
                           SyntheticSuite, synthetic_stream)
-    raise NotImplementedError(_NO_SERVICE)
+    from repro_torch.service import BenchmarkService, ServiceConfig
     base = SyntheticSuite()
     service = BenchmarkService(ServiceConfig(parallelism=parallelism,
                                              seed=seed, chaos=chaos,

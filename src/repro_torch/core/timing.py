@@ -14,6 +14,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 
 @dataclass
@@ -27,15 +28,14 @@ class Timing:
 def block(x):
     """Wait until the device has produced ``x`` (a tensor or a nest of them).
 
-    Synchronises the card that holds the first CUDA tensor, named
-    explicitly: a duet runs on an engine worker thread, whose current
-    device need not be the tensor's."""
-    tensors = [x] if isinstance(x, torch.Tensor) else (
-        list(x.values()) if isinstance(x, dict) else
-        list(x) if isinstance(x, (list, tuple)) else [])
-    cuda = [t for t in tensors if isinstance(t, torch.Tensor) and t.is_cuda]
-    if cuda:
-        torch.cuda.synchronize(cuda[0].device)
+    Walks the whole nest (tuples, lists and dicts at any depth, as
+    ``jax.block_until_ready`` does) and synchronises each card that holds
+    a leaf, named explicitly: a duet runs on an engine worker thread,
+    whose current device need not be the tensor's."""
+    devices = {t.device for t in tree_leaves(x)
+               if isinstance(t, torch.Tensor) and t.is_cuda}
+    for device in devices:
+        torch.cuda.synchronize(device)
     return x
 
 

@@ -24,8 +24,9 @@ factory, "fast" the default.
 
 ``ChaosBackend`` (chaos.py) wraps a virtual-time backend with seeded
 performance regimes (traces.py) and injected faults; at zero intensity it
-is an exact identity.  The observability sinks are not ported yet
-(ROADMAP.md §1, "the rest of obs/"), so the hook sites stay off.
+is an exact identity.  Both engines feed the observability context
+(``repro_torch.obs``) when one is installed, and only read what they
+already computed.
 """
 from repro_torch.faas.backends import (AZURE_PROFILE, AzureLikeBackend,
                                        GCF_PROFILE, GCFLikeBackend,

@@ -16,6 +16,8 @@ from collections.abc import Sequence
 import numpy as np
 import pytest
 
+from test_torch_obs import obs_mode  # noqa: F401 (fixture)
+
 SIDES = ("repro", "repro_torch")
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden_seed_baseline.json")
 
@@ -256,7 +258,7 @@ def test_zero_intensity_config_is_inactive():
     assert not _zero(PORT).active and PORT.chaos.moderate_chaos(seed=0).active
 
 
-def test_zero_intensity_replays_engine_golden_bit_for_bit():
+def test_zero_intensity_replays_engine_golden_bit_for_bit(obs_mode):  # noqa: F811
     def run(m):
         suite = m.experiment.victoriametrics_like_suite()
         plain = m.experiment.run_faas_experiment("baseline", suite, seed=0)
@@ -299,7 +301,15 @@ def test_zero_intensity_wrapper_delegates_backend_protocol():
         PORT.backends.GCF_PROFILE
 
 
-def test_zero_intensity_pipeline_replays_stream_bit_for_bit():
+def test_zero_intensity_service_replays_scheduler_golden(obs_mode):  # noqa: F811
+    """The 16-tenant schedule digest replays through zero-intensity chaos
+    fleets in the port, under each observability mode."""
+    r = PORT.experiment.run_multi_tenant_experiment(16, provider="lambda", seed=34,
+                                                    chaos=_zero(PORT))
+    assert r.digest == "65e8852bf2dce3a7"      # tests/test_service_scheduler.py:19
+
+
+def test_zero_intensity_pipeline_replays_stream_bit_for_bit(obs_mode):  # noqa: F811
     def run(m):
         base = m.cb.SyntheticSuite()
         commits, _ = m.cb.synthetic_stream(

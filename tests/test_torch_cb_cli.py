@@ -3,16 +3,20 @@ package's (``python -m repro.cb.cli``).
 
 An inline synthetic run is virtual-time and seeded, and both sides run the
 same NumPy code, so the port must print the same JSON summary lines and
-write the same history file, byte for byte.  The kernel suite runs on the
-CPU here (``--device cpu``); the service and observability flags raise in
-the port, naming their ROADMAP item.
+write the same history file, byte for byte; so must a run through the
+benchmarking service (``--jobs``, ``--deadline``, ``--budget``) and one
+with the observability flags, their trace, metrics and health files
+included.  The kernel suite runs on the CPU here (``--device cpu``).
 """
 import json
 
 import pytest
 
+from repro import obs as jax_obs
 from repro.cb import cli as jax_cli
+from repro_torch import obs as port_obs
 from repro_torch.cb import cli
+from test_torch_obs import restore_contexts  # noqa: F401 (fixture)
 
 SYNTHETIC_RUNS = [
     ["--commits", "3", "--providers", "lambda,gcf", "--mode", "all", "--seed", "1"],
@@ -61,6 +65,31 @@ def test_kernel_suite_on_the_cpu_gives_one_summary(tmp_path, capsys):
     assert all(r["invocations"] == 3 for r in records if r["source"] == "run")
 
 
+def test_observed_kernel_suite_records_what_jax_records(tmp_path, monkeypatch, capsys,
+                                                        restore_contexts):  # noqa: F811
+    """The kernel suite under the four observability flags, as the JAX
+    command line records it: one commit span (its length is the run's host
+    time), the commit and selection counters, and a health verdict."""
+    monkeypatch.chdir(tmp_path)
+    code = cli.main(["--suite", "kernels", "--device", "cpu", "--n-calls", "3", "--repeats",
+                     "1", "--parallelism", "1", "--trace", "t.json", "--metrics-out",
+                     "m.json", "--slo", "--health-out", "h.json"])
+    err = capsys.readouterr().err
+    trace = json.loads((tmp_path / "t.json").read_text())
+    assert port_obs.validate_chrome_trace(trace) == []
+    spans = [e for e in trace["traceEvents"] if e["ph"] != "M"]
+    assert [(e["ph"], e["cat"], e["name"]) for e in spans] == [("X", "commit", "head")]
+    assert spans[0]["dur"] > 0
+    counters = json.loads((tmp_path / "m.json").read_text())["counters"]
+    assert {c["name"]: (c["labels"], c["value"]) for c in counters} == {
+        "cb.commits": ({"provider": "local"}, 1.0),
+        "cb.benchmarks_selected": ({"provider": "local"}, 3.0)}
+    health = json.loads((tmp_path / "h.json").read_text())
+    assert health["verdict"] in ("healthy", "warn", "breach")
+    assert code == (cli.EXIT_BREACH if health["verdict"] == "breach" else 0)
+    assert f"slo verdict: {health['verdict']}" in err
+
+
 def test_kernel_suite_wants_the_card_unless_asked_for_the_cpu(tmp_path):
     import torch
     if torch.cuda.is_available():
@@ -69,20 +98,54 @@ def test_kernel_suite_wants_the_card_unless_asked_for_the_cpu(tmp_path):
         cli.main(["--suite", "kernels", "--n-calls", "3", "--repeats", "1"])
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--jobs", "2"], "service/"),
-    (["--deadline", "900"], "service/"),
-    (["--budget", "0.25"], "service/"),
-    (["--trace", "t.json"], "the rest of obs/"),
-    (["--metrics-out", "m.json"], "the rest of obs/"),
-    (["--slo"], "the rest of obs/"),
-    (["--health-out", "h.json"], "the rest of obs/"),
-])
-def test_service_and_obs_flags_name_their_roadmap_item(flags, item, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1, {item}"):
-        cli.main(["--commits", "2"] + flags)
-    assert list(tmp_path.iterdir()) == []
+@pytest.mark.parametrize("flags", [
+    ["--jobs", "2"],
+    ["--deadline", "900"],
+    ["--budget", "0.25"],
+    ["--trace", "t.json"],
+    ["--metrics-out", "m.json"],
+    ["--slo"],
+    ["--health-out", "h.json"],
+    ["--trace", "t.json", "--health-out", "h.json"],
+    ["--slo", "--trace", "t.json", "--metrics-out", "m.json", "--health-out", "h.json"],
+    ["--jobs", "2", "--slo", "--health-out", "h.json"],
+], ids=["jobs", "deadline", "budget", "trace", "metrics-out", "slo", "health-out-alone",
+        "health-out-without-slo", "all-obs-flags", "jobs-with-slo"])
+def test_service_and_obs_flags_do_what_jax_does(flags, tmp_path, monkeypatch, capsys,
+                                                restore_contexts):  # noqa: F811
+    """The service and observability flags on a short synthetic stream: the
+    exit code, the printed lines and every file written (history, trace,
+    metrics, health verdict) equal the JAX command line's.  ``--health-out``
+    writes only under ``--slo``, as in JAX."""
+    def run(main, obs, side):
+        (tmp_path / side).mkdir()
+        monkeypatch.chdir(tmp_path / side)
+        code = main(["--commits", "2", "--n-calls", "6", "--seed", "2",
+                     "--history", "history.jsonl"] + flags)
+        obs.set_obs(None)
+        cap = capsys.readouterr()
+        files = {p.name: p.read_text() for p in sorted((tmp_path / side).iterdir())}
+        return code, cap.out.splitlines(), cap.err.splitlines(), files
+    got = run(cli.main, port_obs, "port")
+    assert got == run(jax_cli.main, jax_obs, "jax")
+    code, out, err, files = got
+    assert code in (0, cli.EXIT_BREACH) and json.loads(out[0])["invocations"] > 0
+    written = {f for f in ("t.json", "m.json", "h.json") if f in flags}
+    if "--slo" not in flags:
+        written.discard("h.json")
+    assert set(files) == {"history.jsonl"} | written
+    service = any(f in flags for f in ("--jobs", "--deadline", "--budget"))
+    assert service == json.loads(out[0]).get("service", False)
+    if "--slo" in flags:
+        assert any(line.startswith("slo verdict: ") for line in err)
+
+
+def test_kernel_suite_in_service_mode_is_refused_as_in_jax(capsys, restore_contexts):  # noqa: F811
+    argv = ["--suite", "kernels", "--jobs", "2"]
+    got = cli.main(argv), capsys.readouterr()
+    ref = jax_cli.main(argv), capsys.readouterr()
+    assert got == ref and got[0] == cli.EXIT_INFEASIBLE
+    assert "service mode needs a simulated suite" in got[1].err
 
 
 @pytest.mark.parametrize("codes", [

@@ -8,6 +8,7 @@ order they come back in must agree; its wall and billed seconds are host
 clock readings and are only checked to be there.
 """
 import json
+import os
 from dataclasses import asdict, replace
 
 import pytest
@@ -20,9 +21,12 @@ from repro.faas import engine as jax_engine
 from repro.faas import platform as jax_platform
 from repro_torch.core import controller, rmit
 from repro_torch.core.duet import DuetRunnable
+from repro_torch.core import experiment
 from repro_torch.faas import backends, engine, engine_vec, platform
+from test_torch_obs import obs_mode  # noqa: F401 (fixture)
 
 N = 14
+GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden_seed_baseline.json")
 
 
 def canon(obj):
@@ -218,3 +222,19 @@ def test_fault_injection_is_not_ported_yet():
     ref = run(jax_platform, jax_engine, jax_chaos, jax_rmit)
     assert sum(got[1].values()) > 0
     assert canon(got) == canon(ref)
+
+
+@pytest.mark.parametrize("run, key", [
+    (lambda suite: experiment.run_faas_experiment("baseline", suite, seed=0), "baseline_seed0"),
+    (lambda suite: experiment.run_vm_experiment("original", suite), "vm_original"),
+], ids=["faas-baseline", "vm-original"])
+def test_experiment_matches_seed_golden(obs_mode, run, key):  # noqa: F811
+    """tests/test_engine_backends.py's seed goldens in the port: the same
+    executed, failed and changed sets under each observability mode of the
+    port's context."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)[key]
+    res = run(experiment.victoriametrics_like_suite())
+    assert res.report.executed_benchmarks == golden["executed"]
+    assert res.report.failed_benchmarks == golden["failed"]
+    assert sorted(n for n, c in res.changes.items() if c.changed) == golden["changed"]

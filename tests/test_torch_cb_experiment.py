@@ -2,8 +2,8 @@
 (``core/autotune.py``) against the JAX package's, at small sizes.
 
 Every experiment is virtual-time and seeded, and both sides run the same
-NumPy code, so results must agree bit for bit.  The experiments that need
-the benchmarking service raise in the port, naming their ROADMAP item.
+NumPy code, so results must agree bit for bit, those that run through the
+benchmarking service included.
 """
 import dataclasses
 import importlib
@@ -19,7 +19,7 @@ SIDES = ("repro", "repro_torch")
 class _Mods:
     def __init__(self, pkg):
         for name in ("core.experiment", "core.autotune", "core.controller", "faas.backends",
-                     "faas.chaos", "faas.platform", "cb.registry"):
+                     "faas.chaos", "faas.platform", "cb.registry", "service.planner"):
             setattr(self, name.split(".")[-1], importlib.import_module(f"{pkg}.{name}"))
 
 
@@ -137,14 +137,26 @@ def test_pipeline_detection_accuracy_matches_jax():
     both(run)
 
 
-def test_service_experiments_name_their_roadmap_item():
-    e = PORT.experiment
-    suite = e.victoriametrics_like_suite()
-    for call in (lambda: e.run_service_pareto_experiment(),
-                 lambda: e.run_multi_tenant_experiment(2, n_commits=2, n_calls=3),
-                 lambda: e._execute_candidate(object(), suite, seed=0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1, service/"):
-            call()
+def test_service_experiments_match_jax():
+    """The experiments that run through the benchmarking service: the
+    multi-tenant run, one planner candidate executed on the platform model
+    it priced (a FaaS one and the VM fleet), and the Pareto sweep."""
+    def run(m):
+        e = m.experiment
+        suite = e.victoriametrics_like_suite()
+        multi = e.run_multi_tenant_experiment(2, n_commits=2, n_calls=3)
+        planner = m.planner
+        cands = planner.DeadlineCostPlanner().candidates(suite, seed=0)
+        faas = min((c for c in cands if c.provider == "lambda"),
+                   key=lambda c: c.predicted_cost_usd)
+        vm = next(c for c in cands if c.provider == planner.VM_PROVIDER)
+        executed = [e._execute_candidate(c, suite, seed=0) for c in (faas, vm)]
+        pareto = e.run_service_pareto_experiment(max_rows=2)
+        return multi, [(r.name, r.report, r.changes) for r in executed], pareto
+    multi, executed, pareto = both(run)
+    assert multi.n_tenants == 2 and multi.jobs > 0 and multi.total_invocations > 0
+    assert all(report.pairs for _, report, _ in executed)
+    assert pareto.rows and pareto.chosen is not None and pareto.n_candidates > len(pareto.rows)
 
 
 # ---------------------------------------------------------------- autotune

@@ -5,7 +5,8 @@ and commit stream of tests/test_cb_pipeline.py.
 Virtual time makes every number of a run deterministic, wall time and cost
 included, and both sides run the same NumPy code: reports, events, cache
 counts and history records must agree bit for bit.  Both sides run their
-default engine, the vectorised one (``engine="fast"``).
+default engine, the vectorised one (``engine="fast"``).  A stream may also
+run as jobs of the benchmarking service, and must then agree too.
 """
 import json
 import sqlite3
@@ -126,16 +127,47 @@ def test_detector_scan_matches_jax():
         assert got and canon(got) == canon(ref)
 
 
-def test_what_the_port_lacks_names_its_roadmap_item():
-    """The service calls still raise (service/ is not ported); the paper's
+def _service_streams(mod, cls, service_mod):
+    """Two tenants' streams through one service: tenant a through
+    ``run_stream_service``'s parts (submit, run, collect), tenant b with a
+    deadline and budget; returns both reports and their history."""
+    w, commits, _ = _stream(mod, cls)
+    service = service_mod.BenchmarkService(service_mod.ServiceConfig(parallelism=50, seed=2))
+    out = []
+    for tenant, kw in (("a", {}), ("b", dict(priority=2.0, deadline_s=900.0,
+                                              budget_usd=0.5))):
+        cfg = mod.PipelineConfig(mode="selective_cached", parallelism=50, max_staleness=3,
+                                 seed=2)
+        pipe = mod.Pipeline(mod.SyntheticSuite(dict(w)), cfg)
+        out.append((pipe, pipe.submit_stream(commits, service, tenant=tenant, **kw)))
+    rep = service.run()
+    return rep.digest(), [(canon(p.collect_service(pend)),
+                           [canon(r) for r in p.history.records()]) for p, pend in out]
+
+
+def test_streams_through_the_service_match_jax():
+    """A stream run as service jobs (``submit_stream``, ``collect_service``,
+    ``run_stream_service``) gives JAX's reports and history, and the paper's
     suite (``SyntheticSuite()``) and either engine run and equal JAX."""
+    from repro import service as jax_service
+    from repro_torch import service
+    got = _service_streams(cb, SimWorkload, service)
+    assert got == _service_streams(jax_cb, JaxSimWorkload, jax_service)
+    assert all(len(history) > 0 for _, history in got[1])
     _, commits, _ = _stream(cb, SimWorkload)
-    pipe = cb.Pipeline(cb.SyntheticSuite(_workloads(SimWorkload)))
-    for call in (lambda: pipe.submit_stream(commits, service=None),
-                 lambda: pipe.collect_service([]),
-                 lambda: pipe.run_stream_service(commits, service=None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1, service/"):
-            call()
+    single = {}
+    for name, mod, cls, svc in (("port", cb, SimWorkload, service),
+                                ("jax", jax_cb, JaxSimWorkload, jax_service)):
+        pipe = mod.Pipeline(mod.SyntheticSuite(_workloads(cls)),
+                            mod.PipelineConfig(mode="selective", seed=2))
+        single[name] = canon(pipe.run_stream_service(
+            _stream(mod, cls)[1], svc.BenchmarkService(svc.ServiceConfig(seed=2)),
+            tenant="solo"))
+    assert single["port"] == single["jax"]
+    pipe = cb.Pipeline(cb.SyntheticSuite(_workloads(SimWorkload)),
+                       cb.PipelineConfig(adaptive=True))
+    with pytest.raises(ValueError, match="adaptive"):
+        pipe.submit_stream(commits, service.BenchmarkService(service.ServiceConfig()))
     suite, ref_suite = cb.SyntheticSuite(), jax_cb.SyntheticSuite()
     assert len(suite.workloads) == 106
     assert canon(suite.workloads) == canon(ref_suite.workloads)

@@ -61,6 +61,44 @@ def test_block_is_a_no_op_for_cpu_tensors():
     assert timing.block({"a": x})["a"] is x
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on a CUDA card, so that ``block``'s
+    walk can be checked without one."""
+    index = 0
+
+    @property
+    def is_cuda(self):
+        return True
+
+    @property
+    def device(self):
+        return torch.device("cuda", self.index)
+
+
+def _on_card(index=0):
+    t = torch.ones(2).as_subclass(_OnCard)
+    t.index = index
+    return t
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda t, u: t, {0}),
+    (lambda t, u: (t, u), {0, 1}),
+    (lambda t, u: ((t,), u), {0, 1}),
+    (lambda t, u: {"a": (t,)}, {0}),
+    (lambda t, u: ({"y": t},), {0}),
+    (lambda t, u: [torch.ones(1), {"k": [u, (t, t)]}], {0, 1}),
+], ids=["tensor", "flat", "nested-tuple", "dict-of-tuple", "tuple-of-dict",
+        "mixed"])
+def test_block_synchronises_every_card_in_a_nest(monkeypatch, make, want):
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    out = make(_on_card(0), _on_card(1))
+    assert timing.block(out) is out
+    assert sorted(d.index for d in synced) == sorted(want)
+    assert all(d.type == "cuda" for d in synced)
+
+
 def test_make_timed_returns_seconds_per_call():
     run = timing.make_timed(torch.add, torch.ones(4), 1)
     s = run()
