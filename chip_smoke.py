@@ -77,6 +77,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    health file must equal the JAX tool's by SHA-256.  Output files go to
    ``build/chip_smoke_obs/``; the ``obs_service`` JSON line gives each
    part's wall seconds, verdicts, exit codes and launches.
+11. families: ``repro_torch.launch.serve`` on the MoE, enc-dec, vlm and
+   hybrid families, batch 4, 32 new tokens, each model freed before the
+   next: (a) phi3.5-moe-42b-a6.6b at full width, 8 of its 32 layers,
+   prompt 1024; (b) whisper-medium whole (24 encoder + 24 decoder layers),
+   1,500 frames, prompt 32; (c) llava-next-34b at full width, 8 of its 60
+   layers, 2,880 prefix embeddings + 1,024 tokens; (d) jamba-1.5-large-398b
+   at ``reduced()`` (full width needs more than one card).  Each run
+   counts its launches (K1 once per self-attention layer of the prefill,
+   the encoder's non-causal, K2 once per Mamba layer, none in decode),
+   records every K1 call (no cross-attention takes it) and the decode
+   positions, and holds bf16 prefill->decode rel < 0.08 with
+   capacity_factor 16 at 1 layer (the whole reduced jamba) and, for (a)
+   and (c), flash against dot at 1 layer.  (a) also holds the index-buffer
+   MoE against the dense oracle at one layer's serve shape (f32 1e-4, bf16
+   3e-2 of the largest |y|) and times the MoE FFN's share of a layer.
+   Each run also profiles one warm prefill and one decode step
+   (torch.profiler): device ms, its share of the host-clock time, and the
+   five longest kernels.
+   (e) K1 at the whisper encoder and llava prefill shapes and K2 at
+   Jamba's mixer shape against their plain versions, then timed beside
+   SDPA and their bounds.  The ``families`` JSON line gives each run's
+   times, peak memory, launches and checks.
 
 The last line of standard output is the device line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
@@ -91,6 +113,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -136,6 +159,15 @@ BOOT_TOL = dict(rtol=1e-5, atol=1e-6)     # tests/test_stats_batch.py's toleranc
 # test_attention.py:28, tests/test_ssm.py:32; rms_norm in float32)
 DUET_TOLERANCE = {"attention_dot_vs_chunked": 1e-5, "ssd_recurrence_vs_chunked": 1e-4,
                   "rmsnorm_fused_vs_unfused": 1e-5}
+# phase 11: the MoE, enc-dec, vlm and hybrid families through the same entry
+# point, each at batch 4 and 32 new tokens; (arch, serve flags, layers kept)
+FAMILY_RUNS = {
+    "moe": ("phi3.5-moe-42b-a6.6b", ["--prompt-len", "1024"], 8),
+    "encdec": ("whisper-medium", ["--prompt-len", "32"], None),
+    "vlm": ("llava-next-34b", ["--prompt-len", "1024"], 8),
+    "hybrid": ("jamba-1.5-large-398b", ["--prompt-len", "1024", "--reduced"], None),
+}
+MOE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}    # tests/test_moe.py:39-41; K1's bf16 twin
 
 
 def fail(msg: str):
@@ -285,13 +317,13 @@ def _reset_launches():
     return wrappers
 
 
-def _serve_counted(args):
-    """Drive ``serve.run(args)`` with every kernel's launch counts set to 0
-    just before and read just after; returns (result, {kernel: launches},
-    {kernel: {variant: launches}})."""
+def _serve_counted(args, cfg=None):
+    """Drive ``serve.run(args, cfg=cfg)`` with every kernel's launch counts
+    set to 0 just before and read just after; returns (result, {kernel:
+    launches}, {kernel: {variant: launches}})."""
     from repro_torch.launch import serve
     wrappers = _reset_launches()
-    res = serve.run(args)
+    res = serve.run(args, cfg=cfg)
     return (res, {k: w.launches for k, w in wrappers.items()},
             {k: dict(w.launches_by_variant) for k, w in wrappers.items()})
 
@@ -455,15 +487,18 @@ def run_ssm_serve():
     return res, launches
 
 
-def _consistency(lm, prompts, nxt, kv_dtype):
+def _consistency(lm, prompts, nxt, kv_dtype, inputs=None):
     """rel. max difference of the last logits: full forward against prefill
-    followed by one decode step (tests/test_models_smoke.py:58-93)."""
+    followed by one decode step (tests/test_models_smoke.py:58-93).
+    ``inputs`` holds the enc-dec family's frames or the vlm's image prefix,
+    which shifts the decode position by its length."""
     import torch
     from repro_torch.launch.serve import grow_cache
     cfg = lm.cfg
-    S = prompts.shape[1]
-    full = lm.forward(torch.cat([prompts, nxt], 1), mode="train")["logits"]
-    pf = lm.forward(prompts, mode="prefill", kv_dtype=kv_dtype)
+    kw = inputs or {}
+    S = prompts.shape[1] + (kw["embeds_prefix"].shape[1] if "embeds_prefix" in kw else 0)
+    full = lm.forward(torch.cat([prompts, nxt], 1), mode="train", **kw)["logits"]
+    pf = lm.forward(prompts, mode="prefill", kv_dtype=kv_dtype, **kw)
     cache = grow_cache(cfg, pf["cache"], 2 * S)
     logits_d, _ = lm.decode(cache, nxt, S)
     a = full[:, -1, :cfg.vocab_size].float()
@@ -473,14 +508,15 @@ def _consistency(lm, prompts, nxt, kv_dtype):
     return float((a - b).abs().max() / a.abs().max().clamp(min=1e-6))
 
 
-def _flash_vs_dot(lm, tokens, mode):
+def _flash_vs_dot(lm, tokens, mode, inputs=None):
     """Distributional distance of flash logits from dot logits (the measures
     of tests/test_integration_extras.py:33-37), in train or prefill mode."""
     cfg = lm.cfg
-    flash = lm.forward(tokens, mode=mode)["logits"][..., :cfg.vocab_size].float()
+    kw = inputs or {}
+    flash = lm.forward(tokens, mode=mode, **kw)["logits"][..., :cfg.vocab_size].float()
     lm.cfg = dataclasses.replace(cfg, attention_impl="dot")
     try:
-        dot = lm.forward(tokens, mode=mode)["logits"][..., :cfg.vocab_size].float()
+        dot = lm.forward(tokens, mode=mode, **kw)["logits"][..., :cfg.vocab_size].float()
     finally:
         lm.cfg = cfg
     diff = (flash - dot).abs()
@@ -573,7 +609,7 @@ def check_ssm_serve(res, check_layers=1):
     return {"full_depth": full, f"{check_layers}_layers": cut}
 
 
-def time_prefill(lm, prompts, n=3):
+def time_prefill(lm, prompts, n=3, inputs=None):
     """Warm prefill time (host clock around synchronised calls), median ms."""
     import torch
     times = []
@@ -581,7 +617,7 @@ def time_prefill(lm, prompts, n=3):
         for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lm.forward(prompts, mode="prefill")
+            lm.forward(prompts, mode="prefill", **(inputs or {}))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
@@ -624,50 +660,57 @@ def _device_ms(fn, reps=7, per_rep=10, warmup=3):
     return statistics.median(times)
 
 
-def time_k1():
+def _k1_work(q, k, causal):
+    """(flops, bytes) of one K1 call: q.k and p.v over the (q, k) pairs the
+    mask keeps (the causal half where Sq == Skv), 2 flops per MAC; q, k, v
+    read and the output written once."""
+    B, H, Sq, hd = q.shape
+    Skv = k.shape[2]
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return 4 * hd * pairs * B * H, nbytes
+
+
+def _bound(flops, nbytes, dtype="bfloat16"):
+    """(least ms for the work, "operations" or "bytes")."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_k1_at(B, Sq, Skv, H, K, hd, causal=True, seed=99, fma=True):
+    """K1 (tc) on bf16 inputs at one shape: its times, its CUDA-core variant
+    on the same inputs (``fma``), the plain version, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_launch, flash_attention_hmajor,
                                                      flash_attention_hmajor_plain)
-    s = SERVE_SHAPE
-    B, Sq, Skv, H, K, hd = s["B"], s["Sq"], s["Skv"], s["H"], s["K"], s["hd"]
-    q, k, v = _qkv(B, Sq, Skv, H, K, hd, torch.bfloat16, seed=99)
-    kernel = lambda: flash_attention_hmajor(q, k, v, causal=True)
-    library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    q, k, v = _qkv(B, Sq, Skv, H, K, hd, torch.bfloat16, seed=seed)
+    kernel = lambda: flash_attention_hmajor(q, k, v, causal=causal)
+    library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
     kernel_ms, device_ms = _time_ms(kernel), _device_ms(kernel)
-    fma_ms = _time_ms(lambda: _launch(q, k, v, "fma", causal=True, window=0, kv_valid=None,
-                                      softmax_scale=None))
-    plain_ms = _time_ms(lambda: flash_attention_hmajor_plain(q, k, v, causal=True))
+    fma_ms = _time_ms(lambda: _launch(q, k, v, "fma", causal=causal, window=0, kv_valid=None,
+                                      softmax_scale=None)) if fma else None
+    plain_ms = _time_ms(lambda: flash_attention_hmajor_plain(q, k, v, causal=causal))
     library_ms, library_device_ms = _time_ms(library), _device_ms(library)
-    # least time for the same work: the causal (q, k) pairs only (Sq == Skv here)
-    pairs = Sq * (Sq + 1) // 2
-    flops = 4 * hd * pairs * B * H                      # q.k and p.v, 2 flops per MAC
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    flops, nbytes = _k1_work(q, k, causal)
+    bound_ms, bound_by = _bound(flops, nbytes)
     return dict(ms=kernel_ms, device_ms=device_ms, fma_ms=fma_ms, plain_ms=plain_ms,
                 library_ms=library_ms, library_device_ms=library_device_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flops=flops, bytes=nbytes)
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
 
 
-def time_k2():
-    from repro_torch.kernels.ssd_scan import _launch, ssd_scan_hmajor, ssd_scan_hmajor_plain
-    import torch
-    s = SSM_SERVE_SHAPE
-    B, S, H, G, P, N = s["B"], s["S"], s["H"], s["G"], s["P"], s["N"]
-    x, dt, A, Bi, Ci = _ssd_inputs(B, S, H, G, P, N, torch.bfloat16, seed=98, serve=True)
-    kernel = lambda: ssd_scan_hmajor(x, dt, A, Bi, Ci)
-    kernel_ms, device_ms = _time_ms(kernel), _device_ms(kernel)
-    fma_ms = _time_ms(lambda: _launch(x, dt, A, Bi, Ci, None, "fma", torch.bfloat16))
-    bf16_ops = lambda: _launch(x, dt, A, Bi, Ci, None, "tc", torch.bfloat16, tf32=False)
-    bf16_operands_ms, bf16_operands_device_ms = _time_ms(bf16_ops), _device_ms(bf16_ops)
-    plain_ms = _time_ms(lambda: ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=256))
-    # least time for the same work: bytes read and written once; operations
-    # of the chunk-256 block decomposition (C B^T once per group and chunk,
-    # the causal half of att @ x, C @ state^T and the state update)
-    Q = 256
+def time_k1():
+    s = SERVE_SHAPE
+    return time_k1_at(s["B"], s["Sq"], s["Skv"], s["H"], s["K"], s["hd"])
+
+
+def _k2_work(x, dt, A, Bi, state_bytes, Q=256):
+    """(flops, bytes) of one K2 call: bytes read and written once; operations
+    of the chunk-``Q`` block decomposition (C B^T once per group and chunk,
+    the causal half of att @ x, C @ state^T and the state update)."""
+    B, H, S, P = x.shape
+    G, N = Bi.shape[1], Bi.shape[3]
     nc = -(-S // Q)
     flops = (2 * Q * Q * N * B * G * nc                    # C B^T
              + 2 * (Q * (Q + 1) // 2) * P * B * H * nc     # att @ x, causal half
@@ -675,33 +718,57 @@ def time_k2():
              + 2 * P * N * Q * B * H * nc)                 # state update
     nbytes = (x.numel() * x.element_size() * 2             # x in, y out
               + dt.numel() * dt.element_size() + A.numel() * A.element_size()
-              + (Bi.numel() + Ci.numel()) * Bi.element_size()
-              + B * H * P * N * 4)                          # final state, f32
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return dict(ms=kernel_ms, device_ms=device_ms, fma_ms=fma_ms, plain_ms=plain_ms,
-                library_ms=None, library_device_ms=None, bf16_operands_ms=bf16_operands_ms,
-                bf16_operands_device_ms=bf16_operands_device_ms, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flops=flops, bytes=nbytes)
+              + 2 * Bi.numel() * Bi.element_size() + state_bytes)
+    return flops, nbytes
 
 
-def _device_per_call(fn, inputs):
-    """(device work items, device ms) of one warm call of ``fn``, summed
-    over the CUDA events of a torch.profiler trace; (None, None) where the
-    trace holds no device event."""
+def time_k2_at(B, S, H, G, P, N, seed=98, variants=True):
+    """K2 (tc) on bf16 inputs at one shape: its times, the CUDA-core variant
+    and the bf16-operand tc kernel on the same inputs (``variants``), the
+    plain version and the bound."""
+    from repro_torch.kernels.ssd_scan import _launch, ssd_scan_hmajor, ssd_scan_hmajor_plain
+    import torch
+    x, dt, A, Bi, Ci = _ssd_inputs(B, S, H, G, P, N, torch.bfloat16, seed=seed, serve=True)
+    kernel = lambda: ssd_scan_hmajor(x, dt, A, Bi, Ci)
+    kernel_ms, device_ms = _time_ms(kernel), _device_ms(kernel)
+    out = dict(ms=kernel_ms, device_ms=device_ms)
+    if variants:
+        out["fma_ms"] = _time_ms(lambda: _launch(x, dt, A, Bi, Ci, None, "fma", torch.bfloat16))
+        bf16_ops = lambda: _launch(x, dt, A, Bi, Ci, None, "tc", torch.bfloat16, tf32=False)
+        out["bf16_operands_ms"] = _time_ms(bf16_ops)
+        out["bf16_operands_device_ms"] = _device_ms(bf16_ops)
+    out["plain_ms"] = _time_ms(lambda: ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=256))
+    flops, nbytes = _k2_work(x, dt, A, Bi, B * H * P * N * 4)      # final state, f32
+    bound_ms, bound_by = _bound(flops, nbytes)
+    return dict(out, library_ms=None, library_device_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, flops=flops, bytes=nbytes)
+
+
+def time_k2():
+    s = SSM_SERVE_SHAPE
+    return time_k2_at(s["B"], s["S"], s["H"], s["G"], s["P"], s["N"])
+
+
+def _device_profile(fn, top=0):
+    """Device work of one warm call of ``fn()`` from the CUDA events of a
+    torch.profiler trace: {"items", "device_ms", "top": the ``top`` kernels
+    by device time as [name, ms, count]}; items and ms None where the trace
+    holds no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn(*inputs)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(*inputs)
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not events:
-        return None, None
-    return sum(e.count for e in events), sum(e.self_device_time_total for e in events) / 1e3
+        return {"items": None, "device_ms": None, "top": []}
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return {"items": sum(e.count for e in events),
+            "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in events[:top]]}
 
 
 def check_duets():
@@ -734,8 +801,9 @@ def check_duets():
             fail(f"duet {name}: the two versions disagree")
         out[name] = {"max_abs_err": max_err, "tolerance": tol, "tolerance_share": share}
         for side, fn in (("v1", v1), ("v2", v2)):
-            n, ms = _device_per_call(fn, inputs)
-            out[name].update({f"{side}_device_items": n, f"{side}_device_ms": ms})
+            prof = _device_profile(lambda: fn(*inputs))
+            out[name].update({f"{side}_device_items": prof["items"],
+                              f"{side}_device_ms": prof["device_ms"]})
         log(f"duet {name}: device work per call {json.dumps(out[name])}")
     return out
 
@@ -1069,6 +1137,297 @@ def check_bootstrap():
     return out
 
 
+def _family_args(name):
+    arch, flags, _ = FAMILY_RUNS[name]
+    return ["--arch", arch, "--batch", "4", "--gen", str(GEN), "--attention-impl", "flash",
+            "--kv-dtype", "bfloat16", "--seed", "0", "--device", "cuda", *flags]
+
+
+def _cut(cfg, layers):
+    """``cfg`` cut to ``layers`` decoder layers (and, for the enc-dec family,
+    as many encoder layers)."""
+    kw = {"num_layers": layers}
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder, num_layers=layers)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _no_drops(cfg):
+    """capacity_factor 16, as tests/test_models_smoke.py:63-66 sets it for
+    the prefill->decode equivalence."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+
+
+def _serve_family(name):
+    """Phase 11's serve run of one family, with the kernel launches counted
+    and every K1 call and decode position recorded.  Returns (result,
+    launches, launches by variant, K1 calls [(causal, q shape, k shape)],
+    decode positions)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import LM
+    arch, _, layers = FAMILY_RUNS[name]
+    cfg = None if layers is None else dataclasses.replace(get_config(arch), num_layers=layers)
+    calls, positions = [], []
+    flash, decode = kops.flash_attention, LM.decode
+
+    def record_flash(q, k, v, **kw):
+        calls.append((kw.get("causal", True), tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, v, **kw)
+
+    def record_decode(lm, cache, token, pos):
+        positions.append(pos)
+        return decode(lm, cache, token, pos)
+
+    kops.flash_attention, LM.decode = record_flash, record_decode
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, by_variant = _serve_counted(_family_args(name), cfg=cfg)
+    finally:
+        kops.flash_attention, LM.decode = flash, decode
+    return res, counts, by_variant, calls, positions
+
+
+def _family_checks(res, name):
+    """The held model-level checks of one family run, on the same width cut
+    to 1 layer (the whole reduced model for the hybrid run): bf16
+    prefill->decode rel < 0.08 with capacity_factor 16 and, for the MoE
+    and vlm runs, flash against dot."""
+    import torch
+    from repro_torch.models.lm import LM
+    lm, prompts, inputs = res.lm, res.prompts, res.inputs
+    cfg = lm.cfg
+    g = torch.Generator(device="cuda").manual_seed(5)
+    nxt = torch.randint(0, cfg.vocab_size, (prompts.shape[0], 1), generator=g, device="cuda")
+    layers = cfg.num_layers if name == "hybrid" else 1
+    out = {"layers": layers}
+    with torch.inference_mode():
+        short = LM(_no_drops(_cut(cfg, layers)), device="cuda", seed=0)
+        out["bf16_prefill_decode_rel"] = _consistency(short, prompts, nxt, "bfloat16", inputs)
+        if name in ("moe", "vlm"):
+            # llava's dot path at 3,904 positions materialises [B,K,G,S,S] f32
+            # scores (13.7 GB at batch 4): batch 1 there
+            b = 1 if name == "vlm" else prompts.shape[0]
+            out["flash_vs_dot_batch"] = b
+            out["bf16_flash_vs_dot_train"] = _flash_vs_dot(
+                short, prompts[:b], "train", {k: v[:b] for k, v in inputs.items()})
+        del short
+    if not out["bf16_prefill_decode_rel"] < 0.08:
+        fail(f"{cfg.name}: bf16_prefill_decode_rel={out['bf16_prefill_decode_rel']:.4f} at "
+             f"{layers} layers (limit 0.08)")
+    if "bf16_flash_vs_dot_train" in out and not _close(out["bf16_flash_vs_dot_train"]):
+        fail(f"{cfg.name}: flash vs dot at 1 layer out of bounds: "
+             f"{out['bf16_flash_vs_dot_train']}")
+    return out
+
+
+def check_moe_dispatch(lm):
+    """The index-buffer MoE against the dense oracle on the card, at the
+    serve shape of one phi3.5-moe layer (T = 4 x 1024, E 16, top-2, C 640)
+    with that layer's experts: f32 at atol = rtol = 1e-4, bf16 within 3e-2
+    of the largest |y|.  Both share the router, so they pick the same
+    experts; only the order of the sums differs."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    cfg = lm.cfg
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((4, 1024, cfg.d_model), generator=g, device="cuda")
+    T = x.shape[0] * x.shape[1]
+    out = {"T": T, "E": cfg.moe.num_experts, "C": moe_mod._capacity(T, cfg.moe)}
+    params = dict(lm.blocks[0].moe)
+    for dtype, tol in MOE_TOL.items():
+        dt = getattr(torch, dtype)
+        p = {k: v.to(dt) for k, v in params.items()}
+        with torch.inference_mode():
+            y, aux = moe_mod.moe_ffn_index(x.to(dt), p, cfg.moe)
+            y_ref, aux_ref = moe_mod.moe_ffn_dense(x.to(dt), p, cfg.moe)
+        err = (y.float() - y_ref.float()).abs()
+        ref_max = float(y_ref.float().abs().max())
+        if dtype == "float32":
+            share = float((err / (tol + tol * y_ref.abs())).max())
+        else:
+            share = float(err.max()) / (tol * ref_max)
+        out[dtype] = {"max_abs_err": float(err.max()), "max_abs_y": ref_max,
+                      "tolerance_share": share, "aux_diff": abs(float(aux) - float(aux_ref))}
+        del p, y, y_ref
+        if not share <= 1.0 or not torch.isfinite(err).all():
+            fail(f"MoE index path vs dense oracle, {dtype}: {out[dtype]}")
+    log(f"MoE index path vs dense oracle at T={T}, E={out['E']}, C={out['C']}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def moe_layer_share(lm):
+    """Device ms of one phi3.5-moe layer at the serve shape and of its MoE
+    FFN alone (CUDA events around single calls, median of 25)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import rms_norm
+    cfg = lm.cfg
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((4, 1024, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+    blk = lm.blocks[0]
+    xf = rms_norm(x, blk.ln2, cfg.norm_eps)
+    with torch.inference_mode():
+        layer_ms = _time_ms(lambda: lm._layer(0, x))
+        moe_ms = _time_ms(lambda: moe_mod.moe_ffn(xf, blk.moe, cfg.moe))
+    return {"layer_ms": layer_ms, "moe_ms": moe_ms, "moe_share": moe_ms / layer_ms}
+
+
+def _serve_device_profile(res, S):
+    """Device time of one warm prefill and one decode step of a serve run's
+    model (torch.profiler), as a share of their host-clock times: how much
+    of each the card is busy, and its five longest kernels."""
+    import torch
+    from repro_torch.launch.serve import grow_cache
+    lm, prompts, kw = res.lm, res.prompts, res.inputs
+    with torch.inference_mode():
+        prefill = _device_profile(lambda: lm.forward(prompts, mode="prefill", **kw), top=5)
+        cache = grow_cache(lm.cfg, lm.forward(prompts, mode="prefill", **kw)["cache"], S + 1)
+        tok = torch.as_tensor(res.tokens[:, :1], device=prompts.device)
+        decode = _device_profile(lambda: lm.decode(cache, tok, S), top=5)
+    return {"prefill": prefill, "decode": decode}
+
+
+def run_family(name):
+    """One phase 11 run: serve, the launch and shape checks, the model-level
+    checks, times and peak memory; frees the model before returning."""
+    import torch
+    res, counts, by_variant, calls, positions = _serve_family(name)
+    cfg = res.lm.cfg
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    _check_tokens(res)
+    n_attn = cfg.num_layers // cfg.hybrid.attn_period if cfg.hybrid else cfg.num_layers
+    want_k1 = n_attn + (cfg.encoder.num_layers if cfg.encoder else 0)
+    want_k2 = cfg.num_layers - n_attn if cfg.hybrid else 0
+    if (counts["K1"] != want_k1 or by_variant["K1"]["tc"] != want_k1
+            or counts["K2"] != want_k2 or by_variant["K2"]["tc"] != want_k2):
+        fail(f"{cfg.name}: launches {counts} {by_variant}, want K1 {want_k1} and K2 {want_k2}, "
+             "all on the tensor cores, in one prefill and none in decode")
+    S = res.prompts.shape[1] + cfg.num_image_tokens
+    self_calls = [c for c in calls if c[1][1] == c[2][1]]
+    enc_calls = [c for c in calls if not c[0]]
+    if (len(calls) != want_k1 or len(self_calls) != len(calls)
+            or len(enc_calls) != (cfg.encoder.num_layers if cfg.encoder else 0)
+            or any(c[1][1] != S for c in calls if c[0])):
+        fail(f"{cfg.name}: K1 calls {sorted(set(calls))}: want self-attention only (cross-"
+             "attention on the dot path), non-causal exactly in the encoder, causal at "
+             f"{S} positions")
+    if positions != list(range(S, S + GEN - 1)):
+        fail(f"{cfg.name}: decode positions {positions[:3]}..., want {S}..{S + GEN - 2}")
+    line = {"arch": cfg.name, "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder.num_layers if cfg.encoder else None,
+            "batch": 4, "prompt_len": res.prompts.shape[1], "prefix_len": cfg.num_image_tokens,
+            "gen": GEN, "prefill_ms": res.prefill_s * 1e3,
+            "prefill_warm_ms": time_prefill(res.lm, res.prompts, inputs=res.inputs),
+            "decode_ms_per_token": res.decode_s / (GEN - 1) * 1e3,
+            "tok_per_s": 4 * (GEN - 1) / res.decode_s, "peak_gb": peak_gb,
+            "launches": counts, "launches_by_variant": by_variant,
+            "k1_calls": dict(Counter(f"causal={c} q={list(q)} k={list(k)}"
+                                     for c, q, k in calls)),
+            "first_decode_pos": positions[0]}
+    line["device"] = _serve_device_profile(res, S)
+    for step, host_ms in (("prefill", line["prefill_warm_ms"]),
+                          ("decode", line["decode_ms_per_token"])):
+        ms = line["device"][step]["device_ms"]
+        line["device"][step]["busy_share"] = None if ms is None else ms / host_ms
+    if name == "hybrid":
+        line["full_width"] = ("jamba-1.5-large-398b at full width needs more than one card: "
+                              "one 8-layer period is ~88 GB of bf16 weights")
+    if name == "moe":
+        line["dispatch_vs_dense"] = check_moe_dispatch(res.lm)
+        line["moe_layer"] = moe_layer_share(res.lm)
+    line["checks"] = _family_checks(res, name)
+    log(f"{name}: {json.dumps(line)}")
+    del res
+    torch.cuda.empty_cache()
+    return line
+
+
+# the kernels at phase 11's new shapes: (name, kernel, shape, dtypes)
+NEW_SHAPES = [
+    ("K1 whisper encoder", "K1", dict(B=4, Sq=1500, Skv=1500, H=16, K=16, hd=64, causal=False),
+     ("float32", "bfloat16")),
+    ("K1 llava prefill", "K1", dict(B=4, Sq=3904, Skv=3904, H=56, K=8, hd=128, causal=True),
+     ("bfloat16",)),
+    ("K2 jamba mixer", "K2", dict(B=4, S=1024, H=128, G=1, P=128, N=128), ("float32", "bfloat16")),
+]
+KERNEL_TOL = {("K1", "float32"): 2e-5, ("K1", "bfloat16"): 3e-2,
+              ("K2", "float32"): 1e-4, ("K2", "bfloat16"): 5e-2}
+
+
+def _row_share(a, b, tol):
+    """The largest ||a_r - b_r|| / (tol ||b_r||) over the rows r of the last
+    dim: the output's own scale in each row.  At random N(0, 1) inputs an
+    attention row over ~1500 keys averages to |o| ~ 0.03, as small as the
+    bf16 atol, so only a bound relative to the row sees a kernel that is a
+    few percent off or drops a key tile there."""
+    err = (a - b).norm(dim=-1)
+    return float((err / (tol * b.norm(dim=-1)).clamp_min(1e-30)).max())
+
+
+def check_new_shapes():
+    """Phase 11 (e): K1 and K2 at the shapes the new families give them,
+    each against its plain version on the card (phases 2-3's tolerances,
+    with the share used; in bf16 each output row also within the tolerance
+    of its own norm, ``_row_share``), then timed as ``time_k1``/``time_k2``
+    time them."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_hmajor,
+                                                     flash_attention_hmajor_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
+    out = []
+    for i, (label, kernel, shape, dtypes) in enumerate(NEW_SHAPES):
+        entry = {"name": label, "shape": shape}
+        for dtype in dtypes:
+            dt, tol = getattr(torch, dtype), KERNEL_TOL[(kernel, dtype)]
+            if kernel == "K1":
+                kw = dict(causal=shape["causal"])
+                q, k, v = _qkv(shape["B"], shape["Sq"], shape["Skv"], shape["H"], shape["K"],
+                               shape["hd"], dt, seed=300 + i)
+                got = flash_attention_hmajor(q, k, v, **kw)
+                pairs = [(got, flash_attention_hmajor_plain(q, k, v, **kw))]
+                del q, k, v
+            else:
+                x, dt_, A, Bi, Ci = _ssd_inputs(shape["B"], shape["S"], shape["H"], shape["G"],
+                                                shape["P"], shape["N"], dt, seed=300 + i,
+                                                serve=True)
+                pairs = list(zip(ssd_scan_hmajor(x, dt_, A, Bi, Ci),
+                                 ssd_scan_hmajor_plain(x, dt_, A, Bi, Ci, chunk=256)))
+                del x, dt_, A, Bi, Ci
+            torch.cuda.synchronize()
+            err = share = row = 0.0
+            for a, b in pairs:
+                e, sh, bad = _agreement(a.float(), b.float(), tol)
+                if bad or not torch.isfinite(a.float()).all():
+                    fail(f"{label} {dtype}: {bad} entries out of atol=rtol={tol}")
+                err, share = max(err, e), max(share, sh)
+                if dtype == "bfloat16":
+                    row = max(row, _row_share(a.float(), b.float(), tol))
+            entry[dtype] = {"max_abs_err": err, "tolerance": tol, "tolerance_share": share}
+            if dtype == "bfloat16":
+                entry[dtype]["row_tolerance_share"] = row
+                if not row <= 1.0:
+                    fail(f"{label} {dtype}: a row's error is {row:.3f} x {tol} of its norm")
+            del pairs
+            torch.cuda.empty_cache()
+        if kernel == "K1":
+            t = time_k1_at(shape["B"], shape["Sq"], shape["Skv"], shape["H"], shape["K"],
+                           shape["hd"], causal=shape["causal"], seed=310 + i, fma=False)
+        else:
+            t = time_k2_at(shape["B"], shape["S"], shape["H"], shape["G"], shape["P"], shape["N"],
+                           seed=310 + i, variants=False)
+        entry.update({k: t[k] for k in _TIME_KEYS + ("flops", "bytes") if k in t})
+        entry["max_abs_err"] = entry["bfloat16"]["max_abs_err"]
+        torch.cuda.empty_cache()
+        log(f"{label}: {json.dumps(entry)}")
+        out.append(entry)
+    return out
+
+
 def _serve_times(res, prefill_warm_ms, checks):
     cfg = res.lm.cfg
     return {"arch": cfg.name, "layers": cfg.num_layers, "batch": 4, "prompt_len": 1024,
@@ -1083,16 +1442,19 @@ _TIME_KEYS = ("ms", "device_ms", "fma_ms", "plain_ms", "library_ms", "library_de
 
 
 def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches,
-                 obs_launches, max_abs_err, t):
+                 obs_launches, max_abs_err, t, family_launches, shapes):
     """One kernel of the serve paths: its tensor-core variant, which the bf16
     main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs.
     ``launches`` counts the serve run, ``duet_launches`` the pipeline run of
     phase 7, ``cli_launches`` the command line's kernel-suite run of phase 8,
-    ``obs_launches`` the observed kernel-suite run of phase 10."""
+    ``obs_launches`` the observed kernel-suite run of phase 10, and
+    ``<family>_launches`` phase 11's serve run of that family; ``shapes``
+    holds the kernel at phase 11's new shapes."""
     return {"name": name, "route": "cuda", "variant": "tc", "source": source,
             "replaces": replaces, "launches": launches, "duet_launches": duet_launches,
             "cli_launches": cli_launches, "obs_launches": obs_launches,
-            "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS}}
+            **{f"{fam}_launches": n for fam, n in family_launches.items()},
+            "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS}, "shapes": shapes}
 
 
 def main():
@@ -1142,6 +1504,13 @@ def main():
     obs_line, obs_launches = run_obs_service(cli_line["kernels_wall_s"])
     print(json.dumps({"obs_service": {**obs_line, "phase_s": time.perf_counter() - t_obs}}))
 
+    t_fam = time.perf_counter()
+    torch.cuda.empty_cache()
+    families = {name: run_family(name) for name in FAMILY_RUNS}
+    new_shapes = check_new_shapes()
+    print(json.dumps({"families": {**families, "card": card,
+                                   "phase_s": time.perf_counter() - t_fam}}))
+
     times = {
         "card": card,
         "build_s": build_s,
@@ -1158,13 +1527,18 @@ def main():
         "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"times": times}))
+    fam_launches = {k: {name: f["launches"][k] for name, f in families.items()}
+                    for k in ("K1", "K2")}
+    shapes = {k: [e for e in new_shapes if e["name"].startswith(k)] for k in ("K1", "K2")}
     print(json.dumps({"kernels": [
         _kernel_line("K1 flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:32", k1_launches,
-                     duet_launches["K1"], cli_launches["K1"], obs_launches["K1"], k1_err, k1),
+                     duet_launches["K1"], cli_launches["K1"], obs_launches["K1"], k1_err, k1,
+                     fam_launches["K1"], shapes["K1"]),
         _kernel_line("K2 ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:31", k2_launches,
-                     duet_launches["K2"], cli_launches["K2"], obs_launches["K2"], k2_err, k2),
+                     duet_launches["K2"], cli_launches["K2"], obs_launches["K2"], k2_err, k2,
+                     fam_launches["K2"], shapes["K2"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

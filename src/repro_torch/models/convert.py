@@ -2,16 +2,21 @@
 
 ``params_from_jax(lm, tree)`` takes the JAX parameter pytree as nested
 dicts of numpy arrays (``jax.tree.map(np.asarray, params)``, made by the
-caller) and copies it into ``lm``.  The stacked ``[L, ...]`` leaves are
-split into the per-layer modules; the einsum layouts are kept as they are
-(``wq`` [D,H,hd], ...), so no transpose can hide a mismatch.  bfloat16
-arrays come out of numpy as ``ml_dtypes.bfloat16``, which torch refuses;
-they go through float32, and bf16 -> f32 -> bf16 is exact.
+caller) and copies it into ``lm``.  The stacked leaves are split into the
+per-layer modules: ``blocks``, ``encoder`` and ``cross`` along [L], the
+hybrid ``groups`` along [g] and, within a group, ``mamba`` [g, per-1],
+``dense_ffn`` [g, n_dense] and ``moe`` [g, n_moe] along their second axis.
+The einsum layouts are kept as they are (``wq`` [D,H,hd], experts'
+``w_gate`` [E,D,F], ...), so no transpose can hide a mismatch.  Every key
+and every shape must match exactly.  bfloat16 arrays come out of numpy as
+``ml_dtypes.bfloat16``, which torch refuses; they go through float32, and
+bf16 -> f32 -> bf16 is exact.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.models.lm import LM
 
@@ -37,29 +42,75 @@ def _expect_keys(tree: dict, keys, where: str):
         raise ValueError(f"{where}: JAX keys {sorted(tree)} != port keys {sorted(keys)}")
 
 
+def _expect_lead(tree: dict, n: int, axis: int, where: str):
+    """Every leaf of the stacked ``tree`` has ``n`` entries along ``axis``."""
+    def leaves(t):
+        return [x for v in t.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+    got = {np.asarray(x).shape[axis] for x in leaves(tree)}
+    if got != {n}:
+        raise ValueError(f"{where}: JAX stacks {sorted(got)} along axis {axis}, the port "
+                         f"has {n}")
+
+
+def _copy_dict(dst: nn.ParameterDict, tree: dict, index: tuple, where: str):
+    _expect_keys(tree, dst.keys(), where)
+    for name, leaf in tree.items():
+        _copy(dst[name], np.asarray(leaf)[index], f"{where}.{name}{list(index)}")
+
+
+def _copy_layers(modules: nn.ModuleList, tree: dict, where: str):
+    """Split a stacked [L, ...] tree into per-layer modules: each key names
+    a parameter (a norm) or a ParameterDict (a group) of every module."""
+    own = {name for name, _ in modules[0].named_parameters(recurse=False)}
+    own |= {name for name, _ in modules[0].named_children()}
+    _expect_keys(tree, own, where)
+    _expect_lead(tree, len(modules), 0, where)
+    for i, mod in enumerate(modules):
+        for key, sub in tree.items():
+            if isinstance(sub, dict):
+                _copy_dict(getattr(mod, key), sub, (i,), f"{where}.{key}")
+            else:
+                _copy(getattr(mod, key), np.asarray(sub)[i], f"{where}.{key}[{i}]")
+
+
+def _copy_groups(lm: LM, tree: dict):
+    """The hybrid stack: ``groups`` [g, ...], with the Mamba mixers and the
+    dense and MoE FFNs stacked again within a group."""
+    stacked = ("mamba", "dense_ffn", "moe")
+    _expect_keys(tree, ["ln_mix", "ln_ffn", "attn", *stacked], "groups")
+    _expect_lead(tree, len(lm.groups), 0, "groups")
+    for name in stacked:
+        _expect_lead(tree[name], len(getattr(lm.groups[0], name)), 1, f"groups.{name}")
+    for g, grp in enumerate(lm.groups):
+        for norm in ("ln_mix", "ln_ffn"):
+            _copy(getattr(grp, norm), np.asarray(tree[norm])[g], f"groups.{norm}[{g}]")
+        _copy_dict(grp.attn, tree["attn"], (g,), "groups.attn")
+        for name in stacked:
+            for j, params in enumerate(getattr(grp, name)):
+                _copy_dict(params, tree[name], (g, j), f"groups.{name}")
+
+
 def params_from_jax(lm: LM, tree: dict) -> LM:
-    """Copy the JAX param tree of a dense or SSM LM into ``lm``; returns ``lm``."""
-    top = ["embed", "final_norm", "blocks"] + ([] if lm.cfg.tie_embeddings else ["lm_head"])
+    """Copy the JAX param tree of any family's LM into ``lm``; returns ``lm``."""
+    cfg = lm.cfg
+    stack = "groups" if cfg.family == "hybrid" else "blocks"
+    top = ["embed", "final_norm", stack] + ([] if cfg.tie_embeddings else ["lm_head"])
+    if cfg.encoder is not None:
+        top += ["encoder", "cross"]
     _expect_keys(tree, top, "params")
     _copy(lm.embed, tree["embed"], "embed")
     _copy(lm.final_norm, tree["final_norm"], "final_norm")
     if lm.lm_head is not None:
         _copy(lm.lm_head, tree["lm_head"], "lm_head")
-    blocks = tree["blocks"]
-    # per-layer norms and parameter groups, as the port's blocks name them
-    norms, groups = (["ln"], ["mamba"]) if lm.cfg.family == "ssm" else \
-        (["ln1", "ln2"], ["attn", "mlp"])
-    _expect_keys(blocks, norms + groups, "blocks")
-    n_layers = np.asarray(blocks[norms[0]]).shape[0]
-    if n_layers != len(lm.blocks):
-        raise ValueError(f"JAX has {n_layers} layers, the port {len(lm.blocks)}")
-    for group in groups:
-        _expect_keys(blocks[group], getattr(lm.blocks[0], group).keys(), f"blocks.{group}")
-    for i, blk in enumerate(lm.blocks):
-        for norm in norms:
-            _copy(getattr(blk, norm), np.asarray(blocks[norm])[i], f"blocks.{norm}[{i}]")
-        for group in groups:
-            params = getattr(blk, group)
-            for name, leaf in blocks[group].items():
-                _copy(params[name], np.asarray(leaf)[i], f"blocks.{group}.{name}[{i}]")
+    if stack == "groups":
+        _copy_groups(lm, tree["groups"])
+    else:
+        _copy_layers(lm.blocks, tree["blocks"], "blocks")
+    if cfg.encoder is not None:
+        enc = dict(tree["encoder"])
+        if "final_norm" not in enc:
+            raise ValueError(f"encoder: JAX keys {sorted(enc)} lack final_norm")
+        _copy(lm.encoder_norm, enc.pop("final_norm"), "encoder.final_norm")
+        _copy_layers(lm.encoder, enc, "encoder")
+        _copy_layers(lm.cross, tree["cross"], "cross")
     return lm

@@ -1,20 +1,19 @@
-"""The language model, dense and SSM families: the counterpart of
-``repro.models.lm``.
+"""The language model, every family: the counterpart of ``repro.models.lm``.
 
 One :class:`LM` module = (ModelConfig, ShardingPlan) on one device.  It
 exposes:
 
     param_specs()                         per-layer parameter specs
     forward(tokens, ...)                  train / prefill
-    init_cache()                          decode KV cache
+    init_cache()                          decode caches (KV / SSM / conv)
     decode(cache, token, pos)             one-token serve step
 
 Design notes
 ------------
 * The JAX package scans over stacked layer weights; here the layers are an
   ``nn.ModuleList`` walked by a Python loop.  Weights keep the JAX einsum
-  layouts (``wq`` [D,H,hd], ``wo`` [H,hd,D], ...), so weights carried across
-  from JAX need no transpose.
+  layouts (``wq`` [D,H,hd], ``wo`` [H,hd,D], experts' ``w_gate`` [E,D,F],
+  ...), so weights carried across from JAX need no transpose.
 * gemma3's local:global pattern is a per-layer ``window`` / ``theta``, plain
   Python numbers here, so every layer can take the flash kernel.
 * The decode cache keeps the JAX layout (k/v [L,B,S,K,hd], int8 scales
@@ -24,8 +23,17 @@ Design notes
 * The SSM family (mamba2) runs one Mamba-2 mixer per layer
   (``models/ssm.py``); its decode cache is ``ssm`` [L,B,H,P,N] and ``conv``
   [L,B,W-1,di+2GN], both float32, which a decode step also writes in place.
-* Other families (MoE, hybrid, enc-dec, vlm) are not ported yet and raise
-  ``NotImplementedError``.
+* MoE layers (phi3.5-moe, qwen3-moe, Jamba's every other layer) take
+  ``models/moe.py``; the aux loss is averaged over layers.
+* The hybrid family (Jamba) runs period-``attn_period`` groups: layer
+  ``attn_offset`` of a group is attention, the others Mamba-2 mixers, each
+  followed by a dense or MoE FFN.  Its cache is ``attn`` k/v [G,B,S,K,hd],
+  ``ssm`` [G,per-1,B,H,P,N] and ``conv`` [G,per-1,B,W-1,C].
+* The enc-dec family (whisper) runs a non-causal encoder tower over
+  ``enc_embeds`` and a cross-attention after each decoder self-attention;
+  the cross K/V are computed once at prefill and cached as
+  ``{"self": ..., "cross": ...}``.  The vlm family (llava) prepends
+  ``embeds_prefix`` to the token embeddings.
 """
 from __future__ import annotations
 
@@ -37,18 +45,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, apply_rope, cross_entropy_loss,
                                        init_tree, rms_norm, swiglu, torch_dtype)
 from repro_torch.sharding.plan import ShardingPlan, make_plan
-
-# ROADMAP.md items ("Modules still to port") that bring the other families
-_FAMILY_ITEMS = {
-    "moe": "MoE (moe.py)",
-    "hybrid": "the other families: hybrid",
-    "encdec": "the other families: encdec",
-    "vlm": "the other families: vlm",
-}
 
 
 def resolve_device(device) -> torch.device:
@@ -67,7 +68,8 @@ def _ln(D):
     return ParamSpec((D,), ("embed",), init="zeros")
 
 
-def _attn_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
+def _attn_specs(cfg: ModelConfig, plan: ShardingPlan,
+                cross: bool = False) -> Dict[str, ParamSpec]:
     D, hd = cfg.d_model, cfg.head_dim
     s = {
         "wq": ParamSpec((D, plan.H, hd), ("embed", "q_heads", "head_dim")),
@@ -75,7 +77,7 @@ def _attn_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
         "wv": ParamSpec((D, plan.K, hd), ("embed", "kv_heads", "head_dim")),
         "wo": ParamSpec((plan.H, hd, D), ("q_heads", "head_dim", "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = ParamSpec((plan.H, hd), ("q_heads", "head_dim"), init="zeros")
         s["bk"] = ParamSpec((plan.K, hd), ("kv_heads", "head_dim"), init="zeros")
         s["bv"] = ParamSpec((plan.K, hd), ("kv_heads", "head_dim"), init="zeros")
@@ -88,6 +90,17 @@ def _mlp_specs(cfg):
         "w_gate": ParamSpec((D, F), ("embed", "mlp")),
         "w_up": ParamSpec((D, F), ("embed", "mlp")),
         "w_down": ParamSpec((F, D), ("mlp", "embed")),
+    }
+
+
+def _moe_specs(cfg):
+    D, m = cfg.d_model, cfg.moe
+    E, F = m.num_experts, m.d_ff_expert
+    return {
+        "router": ParamSpec((D, E), ("embed", "experts")),
+        "w_gate": ParamSpec((E, D, F), ("experts", "embed", "expert_mlp")),
+        "w_up": ParamSpec((E, D, F), ("experts", "embed", "expert_mlp")),
+        "w_down": ParamSpec((E, F, D), ("experts", "expert_mlp", "embed")),
     }
 
 
@@ -124,20 +137,25 @@ def _quantize_kv(x):
     return torch.clamp(q, -127, 127).to(torch.int8), scale
 
 
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
 def _params(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
+    return nn.ParameterDict({k: _param(v) for k, v in tree.items()})
 
 
 class Block(nn.Module):
-    """One decoder layer: pre-norm attention, then pre-norm SwiGLU."""
+    """One decoder or encoder layer: pre-norm attention, then a pre-norm
+    SwiGLU (``mlp``) or MoE (``moe``) FFN."""
 
     def __init__(self, tree):
         super().__init__()
-        self.ln1 = nn.Parameter(tree["ln1"], requires_grad=False)
-        self.ln2 = nn.Parameter(tree["ln2"], requires_grad=False)
+        self.ln1 = _param(tree["ln1"])
+        self.ln2 = _param(tree["ln2"])
         self.attn = _params(tree["attn"])
-        self.mlp = _params(tree["mlp"])
+        self.ffn_name = "moe" if "moe" in tree else "mlp"
+        setattr(self, self.ffn_name, _params(tree[self.ffn_name]))
 
 
 class SSMBlock(nn.Module):
@@ -145,8 +163,31 @@ class SSMBlock(nn.Module):
 
     def __init__(self, tree):
         super().__init__()
-        self.ln = nn.Parameter(tree["ln"], requires_grad=False)
+        self.ln = _param(tree["ln"])
         self.mamba = _params(tree["mamba"])
+
+
+class CrossBlock(nn.Module):
+    """One decoder layer's cross-attention: pre-norm, K/V from the encoder."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self.ln = _param(tree["ln"])
+        self.attn = _params(tree["attn"])
+
+
+class HybridGroup(nn.Module):
+    """One period of the hybrid stack: per-layer norms ``ln_mix`` /
+    ``ln_ffn`` [per, D], one attention, per-1 Mamba-2 mixers, and the dense
+    and MoE FFNs in layer order."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self.ln_mix = _param(tree["ln_mix"])
+        self.ln_ffn = _param(tree["ln_ffn"])
+        self.attn = _params(tree["attn"])
+        for name in ("mamba", "dense_ffn", "moe"):
+            setattr(self, name, nn.ModuleList(_params(t) for t in tree[name]))
 
 
 class LM(nn.Module):
@@ -156,23 +197,28 @@ class LM(nn.Module):
         ``torch.Generator`` seeded with ``seed`` (fan-in normal, as the JAX
         init draws them; the numbers differ from jax.random's)."""
         super().__init__()
-        if cfg.family not in ("dense", "ssm") or any(x is not None for x in (
-                cfg.moe, cfg.hybrid, cfg.encoder)) or cfg.num_image_tokens:
-            fam = cfg.family if cfg.family in _FAMILY_ITEMS else "moe"
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet; ROADMAP.md "
-                f"item: {_FAMILY_ITEMS[fam]}")
         self.cfg = cfg
         self.plan = plan or make_plan(cfg)
+        if cfg.hybrid is not None:
+            assert cfg.num_layers % cfg.hybrid.attn_period == 0
+            self.n_groups = cfg.num_layers // cfg.hybrid.attn_period
+        else:
+            self.n_groups = 0
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         tree = init_tree(gen, self.param_specs(), dev)
-        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
-        self.final_norm = nn.Parameter(tree["final_norm"], requires_grad=False)
-        self.lm_head = (None if cfg.tie_embeddings else
-                        nn.Parameter(tree["lm_head"], requires_grad=False))
-        block = SSMBlock if cfg.family == "ssm" else Block
-        self.blocks = nn.ModuleList(block(t) for t in tree["blocks"])
+        self.embed = _param(tree["embed"])
+        self.final_norm = _param(tree["final_norm"])
+        self.lm_head = None if cfg.tie_embeddings else _param(tree["lm_head"])
+        if cfg.family == "hybrid":
+            self.groups = nn.ModuleList(HybridGroup(t) for t in tree["groups"])
+        else:
+            block = SSMBlock if cfg.family == "ssm" else Block
+            self.blocks = nn.ModuleList(block(t) for t in tree["blocks"])
+        if cfg.encoder is not None:
+            self.encoder = nn.ModuleList(Block(t) for t in tree["encoder"])
+            self.encoder_norm = _param(tree["encoder_norm"])
+            self.cross = nn.ModuleList(CrossBlock(t) for t in tree["cross"])
 
     @property
     def device(self) -> torch.device:
@@ -181,52 +227,75 @@ class LM(nn.Module):
     # ------------------------------------------------------------- params
     def param_specs(self):
         cfg, plan = self.cfg, self.plan
-        D = cfg.d_model
+        D, L = cfg.d_model, cfg.num_layers
         p: Dict[str, Any] = {
             "embed": ParamSpec((plan.V, D), ("vocab", "embed")),
             "final_norm": ParamSpec((D,), ("embed",), init="zeros"),
         }
         if not cfg.tie_embeddings:
             p["lm_head"] = ParamSpec((D, plan.V), ("embed", "vocab"))
-        if cfg.family == "ssm":
-            p["blocks"] = [{"ln": _ln(D), "mamba": _ssm_specs(cfg)}
-                           for _ in range(cfg.num_layers)]
+        if cfg.family == "hybrid":
+            per = cfg.hybrid.attn_period
+            n_moe = sum(1 for i in range(per) if cfg.is_moe_layer(i))
+            norms = ParamSpec((per, D), ("layers", "embed"), init="zeros")
+            p["groups"] = [{"ln_mix": norms, "ln_ffn": norms,
+                            "attn": _attn_specs(cfg, plan),
+                            "mamba": [_ssm_specs(cfg) for _ in range(per - 1)],
+                            "dense_ffn": [_mlp_specs(cfg) for _ in range(per - n_moe)],
+                            "moe": [_moe_specs(cfg) for _ in range(n_moe)]}
+                           for _ in range(self.n_groups)]
+        elif cfg.family == "ssm":
+            p["blocks"] = [{"ln": _ln(D), "mamba": _ssm_specs(cfg)} for _ in range(L)]
         else:
+            ffn = ("moe", _moe_specs) if cfg.moe is not None else ("mlp", _mlp_specs)
             p["blocks"] = [{"ln1": _ln(D), "ln2": _ln(D), "attn": _attn_specs(cfg, plan),
-                            "mlp": _mlp_specs(cfg)} for _ in range(cfg.num_layers)]
+                            ffn[0]: ffn[1](cfg)} for _ in range(L)]
+        if cfg.encoder is not None:
+            p["encoder"] = [{"ln1": _ln(D), "ln2": _ln(D), "attn": _attn_specs(cfg, plan),
+                             "mlp": _mlp_specs(cfg)} for _ in range(cfg.encoder.num_layers)]
+            p["encoder_norm"] = ParamSpec((D,), ("embed",), init="zeros")
+            p["cross"] = [{"ln": _ln(D), "attn": _attn_specs(cfg, plan, cross=True)}
+                          for _ in range(L)]
         return p
 
     # ------------------------------------------------------------ helpers
-    def _layer_windows(self):
+    def _layer_window(self, i):
+        """(window or None, RoPE theta) of attention layer ``i``."""
         cfg = self.cfg
-        win, theta = [], []
-        for i in range(cfg.num_layers):
-            if cfg.is_global_attn_layer(i):
-                win.append(-1)
-                theta.append(cfg.rope_theta)
-            else:
-                win.append(cfg.sliding_window)
-                theta.append(10_000.0)   # gemma3: local layers use 10k rope
-        return win, theta
+        if cfg.sliding_window <= 0:
+            return None, cfg.rope_theta
+        if cfg.is_global_attn_layer(i):
+            return -1, cfg.rope_theta
+        return cfg.sliding_window, 10_000.0     # gemma3: local layers use 10k rope
 
     def _head(self):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
-    def _attn(self, x, p, *, window, theta, cache=None, pos=None,
-              prefill_kv_dtype=None):
+    def _attn(self, x, p, *, window, theta, causal=True, cache=None, pos=None,
+              cross_kv=None, prefill_kv_dtype=None):
         """Attention sub-layer.  Exactly one cache mode:
           cache+pos        -> decode (write at pos in place, read whole cache)
           prefill_kv_dtype -> prefill (emit a fresh cache of the seq length)
           neither          -> plain training attention
+        ``cross_kv`` ({"k", "v"} from the encoder) makes it a cross-attention
+        (no RoPE, non-causal, dot).
         Returns (out [B,S,D], new_cache_entry_or_None).
         """
         cfg, plan = self.cfg, self.plan
         B, S, D = x.shape
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        if cross_kv is not None:
+            out = attn_mod.attention(
+                q, cross_kv["k"], cross_kv["v"], impl="dot", causal=False,
+                window=None, chunk=cfg.attention_chunk)
+            return torch.einsum("bshk,hkd->bsd", out, p["wo"]), None
+
         k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
         v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-        if "bq" in p:
-            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
         if pos is None:
             positions = torch.arange(S, device=x.device)[None, :]
         else:
@@ -258,7 +327,7 @@ class LM(nn.Module):
                 k_scale=k_scale, v_scale=v_scale, chunk=cfg.attention_chunk)
         else:
             out = attn_mod.attention(
-                q, k, v, impl=cfg.attention_impl, causal=True, window=window,
+                q, k, v, impl=cfg.attention_impl, causal=causal, window=window,
                 chunk=cfg.attention_chunk)
             if prefill_kv_dtype is not None:
                 if prefill_kv_dtype == "int8":
@@ -271,17 +340,33 @@ class LM(nn.Module):
         out = plan.act(out, "batch", "seq", "q_heads", "head_dim")
         return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
 
+    def _ffn(self, x, p, is_moe: bool):
+        """A MoE FFN or a dense SwiGLU with params ``p``; returns (y,
+        aux_loss), the aux loss 0 for a dense FFN."""
+        if is_moe:
+            return moe_mod.moe_ffn(x, p, self.cfg.moe, impl=self.cfg.moe_impl)
+        y = swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        return y, torch.zeros((), device=x.device)
+
     # ------------------------------------------------------------ forward
-    def forward(self, tokens, *, labels=None, mode="train", kv_dtype="bfloat16"):
+    def forward(self, tokens, *, embeds_prefix=None, enc_embeds=None, labels=None,
+                mode="train", kv_dtype="bfloat16"):
         """mode 'train': returns {'loss', 'aux_loss'} (labels given) or
         {'logits', 'aux_loss'}.  mode 'prefill': returns {'logits' [B,1,V],
-        'cache'} with the cache at the prompt's length."""
+        'cache'} with the cache at the prompt's length.  The enc-dec family
+        needs ``enc_embeds`` [B, source_len, D]; ``embeds_prefix`` [B, n, D]
+        goes before the token embeddings (vlm)."""
         cfg = self.cfg
         if mode not in ("train", "prefill"):
             raise ValueError(f"unknown mode {mode!r}")
-        x = self._embed_inputs(tokens)
-        x, new_cache = self._stack(
-            x, prefill_kv_dtype=kv_dtype if mode == "prefill" else None)
+        x = self._embed_inputs(tokens, embeds_prefix)
+        enc_out = None
+        if cfg.encoder is not None:
+            if enc_embeds is None:
+                raise ValueError(f"{cfg.name}: the enc-dec family needs enc_embeds")
+            enc_out = self._encoder(enc_embeds)
+        x, new_cache, aux = self._stack(
+            x, enc_out=enc_out, prefill_kv_dtype=kv_dtype if mode == "prefill" else None)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         head = self._head()
 
@@ -290,10 +375,13 @@ class LM(nn.Module):
             return {"logits": self._mask_vocab(logits), "cache": new_cache}
 
         logits = torch.einsum("bsd,dv->bsv", x, head)
-        out = {"aux_loss": torch.zeros((), device=x.device)}
+        out = {"aux_loss": aux}
         if labels is not None:
+            n_img = x.shape[1] - tokens.shape[1]
+            if n_img > 0:
+                logits = logits[:, n_img:]
             out["loss"] = cross_entropy_loss(logits[:, :-1], labels[:, 1:],
-                                             cfg.vocab_size) + 0.01 * out["aux_loss"]
+                                             cfg.vocab_size) + 0.01 * aux
         else:
             out["logits"] = self._mask_vocab(logits)
         return out
@@ -305,17 +393,37 @@ class LM(nn.Module):
         iota = torch.arange(logits.shape[-1], device=logits.device)
         return torch.where(iota < v_real, logits, -1e30)
 
-    def _embed_inputs(self, tokens):
+    def _embed_inputs(self, tokens, embeds_prefix=None):
         x = self.embed[tokens]
         x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+        if embeds_prefix is not None:
+            x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
         return self.plan.act(x, "batch", "seq", "embed")
 
+    def _encoder(self, enc_embeds):
+        """The non-causal encoder tower over frames cast to ``cfg.dtype``."""
+        cfg = self.cfg
+        x = enc_embeds.to(torch_dtype(cfg.dtype))
+        for blk in self.encoder:
+            h, _ = self._attn(rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn,
+                              window=None, theta=cfg.rope_theta, causal=False)
+            x = x + h
+            m = blk.mlp
+            x = x + swiglu(rms_norm(x, blk.ln2, cfg.norm_eps),
+                           m["w_gate"], m["w_up"], m["w_down"])
+        return rms_norm(x, self.encoder_norm, cfg.norm_eps)
+
     # ------------------------------------------------------- layer stacks
-    def _stack(self, x, cache=None, pos=None, prefill_kv_dtype=None):
-        if self.cfg.family == "ssm":
+    def _stack(self, x, cache=None, enc_out=None, pos=None, prefill_kv_dtype=None):
+        """Returns (x, cache, aux_loss)."""
+        family = self.cfg.family
+        if family == "hybrid":
+            return self._stack_hybrid(x, cache=cache, pos=pos,
+                                      prefill_kv_dtype=prefill_kv_dtype)
+        if family == "ssm":
             return self._stack_ssm(x, cache=cache, pos=pos,
                                    want_cache=prefill_kv_dtype is not None)
-        return self._stack_attn(x, cache=cache, pos=pos,
+        return self._stack_attn(x, cache=cache, enc_out=enc_out, pos=pos,
                                 prefill_kv_dtype=prefill_kv_dtype)
 
     def _stack_ssm(self, x, cache=None, pos=None, want_cache=False):
@@ -324,6 +432,7 @@ class LM(nn.Module):
         given) steps from ``cache`` and writes the new states into it."""
         cfg = self.cfg
         decode = pos is not None
+        aux = torch.zeros((), device=x.device)
         new_layers = []
         for i, blk in enumerate(self.blocks):
             h0 = conv0 = None
@@ -339,44 +448,132 @@ class LM(nn.Module):
             elif want_cache:
                 new_layers.append((h_new, conv_new))
         if decode:
-            return x, cache
+            return x, cache, aux
         if not want_cache:
-            return x, None
+            return x, None, aux
         return x, {"ssm": torch.stack([h for h, _ in new_layers]),
-                   "conv": torch.stack([c for _, c in new_layers])}
+                   "conv": torch.stack([c for _, c in new_layers])}, aux
 
-    def _stack_attn(self, x, cache=None, pos=None, prefill_kv_dtype=None):
+    def _layer(self, i, x, *, cache=None, pos=None, enc_out=None, cross_cache=None,
+               prefill_kv_dtype=None):
+        """Layer ``i`` of the attention stack: self-attention, the
+        cross-attention of the enc-dec family (K/V from ``cross_cache`` in
+        decode, else from ``enc_out``), then the FFN.  Returns (x, self
+        cache entry, cross K/V to cache or None, aux loss)."""
         cfg, plan = self.cfg, self.plan
-        win, theta = self._layer_windows()
-        new_layers = []
-        for i, blk in enumerate(self.blocks):
-            w_i = win[i] if cfg.sliding_window > 0 else None
-            layer_cache = (None if cache is None else
-                           {name: t[i] for name, t in cache.items()})
-            h, new_c = self._attn(
-                rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn,
-                window=w_i, theta=theta[i], cache=layer_cache, pos=pos,
-                prefill_kv_dtype=prefill_kv_dtype)
+        blk = self.blocks[i]
+        window, theta = self._layer_window(i)
+        h, new_c = self._attn(
+            rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn, window=window, theta=theta,
+            cache=cache, pos=pos, prefill_kv_dtype=prefill_kv_dtype)
+        x = x + h
+        new_cross = None
+        if cfg.encoder is not None:
+            cp = self.cross[i]
+            if pos is not None:
+                kv = new_cross = cross_cache
+            else:
+                kv = {"k": torch.einsum("bsd,dhk->bshk", enc_out, cp.attn["wk"]),
+                      "v": torch.einsum("bsd,dhk->bshk", enc_out, cp.attn["wv"])}
+                new_cross = kv if prefill_kv_dtype is not None else None
+            h, _ = self._attn(rms_norm(x, cp.ln, cfg.norm_eps), cp.attn, window=None,
+                              theta=cfg.rope_theta, cross_kv=kv)
             x = x + h
-            m = blk.mlp
-            y = swiglu(rms_norm(x, blk.ln2, cfg.norm_eps),
-                       m["w_gate"], m["w_up"], m["w_down"])
-            x = plan.act(x + y, "batch", "seq", "embed")
-            new_layers.append(new_c)
+        y, aux = self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), getattr(blk, blk.ffn_name),
+                           is_moe=blk.ffn_name == "moe")
+        return plan.act(x + y, "batch", "seq", "embed"), new_c, new_cross, aux
+
+    def _stack_attn(self, x, cache=None, enc_out=None, pos=None, prefill_kv_dtype=None):
+        is_encdec = self.cfg.encoder is not None
+        self_cache, cross_cache = cache, None
+        if is_encdec and pos is not None:
+            self_cache, cross_cache = cache["self"], cache["cross"]
+        new_self, new_cross, auxes = [], [], []
+        for i in range(len(self.blocks)):
+            layer_cache = (None if self_cache is None else
+                           {name: t[i] for name, t in self_cache.items()})
+            layer_cross = (None if cross_cache is None else
+                           {name: t[i] for name, t in cross_cache.items()})
+            x, new_c, new_x, aux = self._layer(
+                i, x, cache=layer_cache, pos=pos, enc_out=enc_out,
+                cross_cache=layer_cross, prefill_kv_dtype=prefill_kv_dtype)
+            new_self.append(new_c)
+            new_cross.append(new_x)
+            auxes.append(aux)
+        aux = torch.stack(auxes).mean()
         if cache is not None:
-            return x, cache
+            return x, cache, aux
         if prefill_kv_dtype is None:
-            return x, None
-        return x, {name: torch.stack([c[name] for c in new_layers])
-                   for name in new_layers[0]}
+            return x, None, aux
+        stacked = {name: torch.stack([c[name] for c in new_self]) for name in new_self[0]}
+        if is_encdec:
+            stacked = {"self": stacked, "cross": {
+                name: torch.stack([c[name] for c in new_cross]) for name in ("k", "v")}}
+        return x, stacked, aux
+
+    def _stack_hybrid(self, x, cache=None, pos=None, prefill_kv_dtype=None):
+        """Period groups of one attention and per-1 Mamba-2 layers, each
+        followed by a dense or MoE FFN.  Decode writes the group's KV, SSM
+        and conv states into ``cache`` in place; prefill with
+        ``prefill_kv_dtype`` emits them."""
+        cfg = self.cfg
+        per = cfg.hybrid.attn_period
+        decode = pos is not None
+        auxes, new_groups = [], []
+        for g, grp in enumerate(self.groups):
+            aux_total = torch.zeros((), device=x.device)
+            attn_c, states, convs = None, [], []
+            mamba_i = moe_i = dense_i = 0
+            for i in range(per):
+                xin = rms_norm(x, grp.ln_mix[i], cfg.norm_eps)
+                if cfg.is_attn_layer(i):
+                    layer_cache = ({name: t[g] for name, t in cache["attn"].items()}
+                                   if decode else None)
+                    h, attn_c = self._attn(xin, grp.attn, window=None, theta=cfg.rope_theta,
+                                           cache=layer_cache, pos=pos,
+                                           prefill_kv_dtype=prefill_kv_dtype)
+                else:
+                    h0 = conv0 = None
+                    if decode:
+                        h0, conv0 = cache["ssm"][g, mamba_i], cache["conv"][g, mamba_i]
+                    h, (h_new, conv_new) = ssm_mod.mamba_block(
+                        xin, grp.mamba[mamba_i], cfg, h0=h0, conv0=conv0, decode=decode)
+                    if decode:
+                        cache["ssm"][g, mamba_i].copy_(h_new)
+                        cache["conv"][g, mamba_i].copy_(conv_new)
+                    states.append(h_new)
+                    convs.append(conv_new)
+                    mamba_i += 1
+                x = x + h
+                xf = rms_norm(x, grp.ln_ffn[i], cfg.norm_eps)
+                if cfg.is_moe_layer(i):
+                    y, aux = self._ffn(xf, grp.moe[moe_i], is_moe=True)
+                    aux_total = aux_total + aux
+                    moe_i += 1
+                else:
+                    y, _ = self._ffn(xf, grp.dense_ffn[dense_i], is_moe=False)
+                    dense_i += 1
+                x = self.plan.act(x + y, "batch", "seq", "embed")
+            auxes.append(aux_total / per)
+            new_groups.append((attn_c, states, convs))
+        aux = torch.stack(auxes).mean()
+        if decode:
+            return x, cache, aux
+        if prefill_kv_dtype is None:
+            return x, None, aux
+        return x, {"attn": {name: torch.stack([a[name] for a, _, _ in new_groups])
+                            for name in new_groups[0][0]},
+                   "ssm": torch.stack([torch.stack(s) for _, s, _ in new_groups]),
+                   "conv": torch.stack([torch.stack(c) for _, _, c in new_groups])}, aux
 
     # -------------------------------------------------------------- decode
     def decode(self, cache, token, pos: int):
-        """One serve step.  token [B,1] int; pos int.  Writes the new key and
-        value (or the new SSM and conv states) into ``cache`` in place.
-        Returns (logits [B,1,V_pad] with the padded vocab masked, cache)."""
+        """One serve step.  token [B,1] int; pos int (the image prefix
+        counted).  Writes the new key and value (or the new SSM and conv
+        states) into ``cache`` in place.  Returns (logits [B,1,V_pad] with
+        the padded vocab masked, cache)."""
         x = self._embed_inputs(token)
-        x, cache = self._stack(x, cache=cache, pos=pos)
+        x, cache, _ = self._stack(x, cache=cache, pos=pos)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         logits = torch.einsum("bsd,dv->bsv", x, self._head())
         return self._mask_vocab(logits), cache
@@ -384,19 +581,32 @@ class LM(nn.Module):
     # ----------------------------------------------------------- caches
     def init_cache(self, batch: int, seq: int, kv_dtype: str = "bfloat16"):
         cfg, plan = self.cfg, self.plan
-        if cfg.family == "ssm":
+        dev = self.device
+
+        def kv_layers(lead, S, dtype):
+            shape = (*lead, batch, S, plan.K, cfg.head_dim)
+            c = {"k": torch.zeros(shape, dtype=torch_dtype(dtype), device=dev),
+                 "v": torch.zeros(shape, dtype=torch_dtype(dtype), device=dev)}
+            if dtype == "int8":
+                c["k_scale"] = torch.zeros(shape[:-1], device=dev)
+                c["v_scale"] = torch.zeros(shape[:-1], device=dev)
+            return c
+
+        def ssm_layers(lead):
             s = cfg.ssm
             di, GN = s.d_inner(cfg.d_model), s.n_groups * s.d_state
-            L = cfg.num_layers
-            return {"ssm": torch.zeros((L, batch, s.n_heads(cfg.d_model), s.head_dim,
-                                        s.d_state), device=self.device),
-                    "conv": torch.zeros((L, batch, s.conv_width - 1, di + 2 * GN),
-                                        device=self.device)}
-        shape = (cfg.num_layers, batch, seq, plan.K, cfg.head_dim)
-        dt = torch_dtype(kv_dtype)
-        c = {"k": torch.zeros(shape, dtype=dt, device=self.device),
-             "v": torch.zeros(shape, dtype=dt, device=self.device)}
-        if kv_dtype == "int8":
-            c["k_scale"] = torch.zeros(shape[:-1], device=self.device)
-            c["v_scale"] = torch.zeros(shape[:-1], device=self.device)
+            return {"ssm": torch.zeros((*lead, batch, s.n_heads(cfg.d_model), s.head_dim,
+                                        s.d_state), device=dev),
+                    "conv": torch.zeros((*lead, batch, s.conv_width - 1, di + 2 * GN),
+                                        device=dev)}
+
+        if cfg.family == "ssm":
+            return ssm_layers((cfg.num_layers,))
+        if cfg.family == "hybrid":
+            return {"attn": kv_layers((self.n_groups,), seq, kv_dtype),
+                    **ssm_layers((self.n_groups, cfg.hybrid.attn_period - 1))}
+        c = kv_layers((cfg.num_layers,), seq, kv_dtype)
+        if cfg.encoder is not None:
+            return {"self": c, "cross": kv_layers((cfg.num_layers,), cfg.encoder.source_len,
+                                                  cfg.dtype)}
         return c
