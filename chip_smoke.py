@@ -99,6 +99,31 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    Jamba's mixer shape against their plain versions, then timed beside
    SDPA and their bounds.  The ``families`` JSON line gives each run's
    times, peak memory, launches and checks.
+12. train: ``repro_torch.launch.train.main`` in this process, as a user
+   starts it, seeded random bf16 weights, each model freed before the
+   next.  (e) reduced internlm2, lr 1e-2, warmup 5, no weight decay: 14
+   steps with a checkpoint at step 12, then step 12 copied into a second
+   directory where the same command must resume from step 12; the two
+   step_14 checkpoints must be equal byte for byte.  (c) internlm2 and
+   mamba2 cut to 1 layer at full width, batch 2 x 256, f32: one step's
+   loss and every leaf's gradient on the card against the same port on
+   the CPU (each leaf within 1e-4 of its norm + 1e-6), remat "dots"
+   against "none" on the card (1e-6), every gradient nonzero; for mamba2
+   also the gradient through ``SSDScanFn`` (K2 "fma") against autograd
+   through the plain scan on the card (1e-4), and the bf16 step (K2 "tc")
+   against the f32 one (each leaf within 5e-2 of its norm).  (a)
+   internlm2-1.8b at full width (24 layers, remat "dots"), seq 4,096,
+   global batch 8 in 4 microbatches of 2, 4 steps at lr 3e-4: no K1 or K2
+   launch (the chunked attention at 4,096 positions, as in JAX); (d) the
+   same model 2 steps with int8 optimizer state: the peak memory drops by
+   the int8 saving of m and v within 20%, and the step-2 loss is within
+   1e-2 of (a)'s; (b) mamba2-1.3b at full width (48 layers) as (a): K2
+   "tc" once per layer, microbatch and remat recompute (384 a step).  For
+   (a) and (b) each step's loss, lr, grad_norm and seconds, the warm step
+   time (steps 2-4), tokens/s, peak GB and the share of the dense bf16
+   peak that 6 N tokens per step is, then one microbatch's forward and
+   backward, gradient sum and AdamW update timed and profiled.  The
+   ``train`` JSON line gives each part's numbers.
 
 The last line of standard output is the device line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
@@ -107,6 +132,7 @@ of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -1347,13 +1373,19 @@ def run_family(name):
     return line
 
 
-# the kernels at phase 11's new shapes: (name, kernel, shape, dtypes)
+# the kernels at the shapes of phase 11's families and of phase 12's
+# mamba2 train microbatch: (name, kernel, shape, dtypes, inputs); inputs
+# "drawn" come from ``_qkv``/``_ssd_inputs``, "train" are K2's inputs in a
+# mamba2-1.3b microbatch (``_mamba2_train_ssd_inputs``)
 NEW_SHAPES = [
     ("K1 whisper encoder", "K1", dict(B=4, Sq=1500, Skv=1500, H=16, K=16, hd=64, causal=False),
-     ("float32", "bfloat16")),
+     ("float32", "bfloat16"), "drawn"),
     ("K1 llava prefill", "K1", dict(B=4, Sq=3904, Skv=3904, H=56, K=8, hd=128, causal=True),
-     ("bfloat16",)),
-    ("K2 jamba mixer", "K2", dict(B=4, S=1024, H=128, G=1, P=128, N=128), ("float32", "bfloat16")),
+     ("bfloat16",), "drawn"),
+    ("K2 jamba mixer", "K2", dict(B=4, S=1024, H=128, G=1, P=128, N=128), ("float32", "bfloat16"),
+     "drawn"),
+    ("K2 mamba2 train microbatch", "K2", dict(B=2, S=4096, H=64, G=1, P=64, N=128),
+     ("float32", "bfloat16"), "train"),
 ]
 KERNEL_TOL = {("K1", "float32"): 2e-5, ("K1", "bfloat16"): 3e-2,
               ("K2", "float32"): 1e-4, ("K2", "bfloat16"): 5e-2}
@@ -1369,19 +1401,65 @@ def _row_share(a, b, tol):
     return float((err / (tol * b.norm(dim=-1)).clamp_min(1e-30)).max())
 
 
+def _mamba2_train_ssd_inputs():
+    """K2's inputs as a mamba2-1.3b train microbatch gives them: the forward
+    of the full-depth model (seeded random bf16 weights, as phase 12 (b))
+    on 2 x 4,096 synthetic tokens, keeping the SSD call whose chunks decay
+    most (the largest sum of dt |A| over a chunk's 256 positions; the
+    gradient's exp overflow came from these sums).  Returns (x, dt, A, B,
+    C) head-major, and that largest sum."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.lm import LM
+    from repro_torch.train import data as data_mod
+    from repro_torch.train.train_step import make_loss_fn
+    cfg = get_config(TRAIN_RUNS["mamba2"])
+    lm = LM(cfg, device="cuda", seed=0)
+    ds = data_mod.SyntheticDataset(data_mod.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=4096, global_batch=2, accum_steps=1), cfg)
+    mb = {k: v[0] for k, v in data_mod.batch_to_device(ds.batch(0), "cuda").items()}
+    best = {"decay": -1.0}
+    real = ssm_mod.ssd_scan_hmajor
+
+    def grab(x, dt, A, B, C, *, chunk, h0=None):
+        decay = float((dt * -A[:, None]).unflatten(-1, (-1, chunk)).sum(-1).max())
+        if decay > best["decay"]:
+            best.update(decay=decay, inputs=tuple(t.clone() for t in (x, dt, A, B, C)))
+        return real(x, dt, A, B, C, chunk=chunk, h0=h0)
+
+    ssm_mod.ssd_scan_hmajor = grab
+    try:
+        with torch.no_grad():
+            make_loss_fn(lm)(mb)
+    finally:
+        ssm_mod.ssd_scan_hmajor = real
+    del lm
+    torch.cuda.empty_cache()
+    return best["inputs"], best["decay"]
+
+
 def check_new_shapes():
-    """Phase 11 (e): K1 and K2 at the shapes the new families give them,
-    each against its plain version on the card (phases 2-3's tolerances,
-    with the share used; in bf16 each output row also within the tolerance
-    of its own norm, ``_row_share``), then timed as ``time_k1``/``time_k2``
-    time them."""
+    """Phase 11 (e): K1 and K2 at the shapes the new families and the mamba2
+    train microbatch give them, each against its plain version on the card
+    (phases 2-3's tolerances, with the share used; in bf16 each output row
+    also within the tolerance of its own norm, ``_row_share``), then timed
+    as ``time_k1``/``time_k2`` time them.  The train shape holds K2 on the
+    inputs the model gives it (its f32 case on the same inputs cast up)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_hmajor,
                                                      flash_attention_hmajor_plain)
     from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
     out = []
-    for i, (label, kernel, shape, dtypes) in enumerate(NEW_SHAPES):
-        entry = {"name": label, "shape": shape}
+    for i, (label, kernel, shape, dtypes, inputs) in enumerate(NEW_SHAPES):
+        entry = {"name": label, "shape": shape, "inputs": inputs}
+        if inputs == "train":
+            train_inputs, entry["max_chunk_decay"] = _mamba2_train_ssd_inputs()
+            got = tuple(train_inputs[0].shape), tuple(train_inputs[3].shape)
+            want = ((shape["B"], shape["H"], shape["S"], shape["P"]),
+                    (shape["B"], shape["G"], shape["S"], shape["N"]))
+            if got != want:
+                fail(f"{label}: the model gives K2 x and B of {got}, want {want}")
         for dtype in dtypes:
             dt, tol = getattr(torch, dtype), KERNEL_TOL[(kernel, dtype)]
             if kernel == "K1":
@@ -1392,9 +1470,13 @@ def check_new_shapes():
                 pairs = [(got, flash_attention_hmajor_plain(q, k, v, **kw))]
                 del q, k, v
             else:
-                x, dt_, A, Bi, Ci = _ssd_inputs(shape["B"], shape["S"], shape["H"], shape["G"],
-                                                shape["P"], shape["N"], dt, seed=300 + i,
-                                                serve=True)
+                if inputs == "train":
+                    x, dt_, A, Bi, Ci = (t.to(dt) if t.dtype == torch.bfloat16 else t
+                                         for t in train_inputs)
+                else:
+                    x, dt_, A, Bi, Ci = _ssd_inputs(shape["B"], shape["S"], shape["H"],
+                                                    shape["G"], shape["P"], shape["N"], dt,
+                                                    seed=300 + i, serve=True)
                 pairs = list(zip(ssd_scan_hmajor(x, dt_, A, Bi, Ci),
                                  ssd_scan_hmajor_plain(x, dt_, A, Bi, Ci, chunk=256)))
                 del x, dt_, A, Bi, Ci
@@ -1414,6 +1496,7 @@ def check_new_shapes():
                     fail(f"{label} {dtype}: a row's error is {row:.3f} x {tol} of its norm")
             del pairs
             torch.cuda.empty_cache()
+        train_inputs = None
         if kernel == "K1":
             t = time_k1_at(shape["B"], shape["Sq"], shape["Skv"], shape["H"], shape["K"],
                            shape["hd"], causal=shape["causal"], seed=310 + i, fma=False)
@@ -1426,6 +1509,406 @@ def check_new_shapes():
         log(f"{label}: {json.dumps(entry)}")
         out.append(entry)
     return out
+
+
+# ------------------------------------------------------------ phase 12: train
+# (a) and (b): seq 4,096 as train_4k; global batch 8 (train_4k's 256 cut to 8)
+# in 4 microbatches of 2, the per-device microbatch the cells' rule aims at
+TRAIN_STEPS = 4
+TRAIN_ARGS = ["--seq-len", "4096", "--global-batch", "8", "--accum", "4", "--lr", "3e-4",
+              "--log-every", "1", "--seed", "0", "--device", "cuda"]
+TRAIN_RUNS = {"internlm2": "internlm2-1.8b", "mamba2": "mamba2-1.3b"}
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)       # per leaf: |g - g_ref| <= rtol |g_ref| + atol
+REMAT_TOL = 1e-6                            # dots against none: relative, loss and each leaf
+# the bf16 step (K2 tc) against the f32 step, per leaf, relative to the f32
+# gradient's norm: K2's own bf16 tolerance, which its bf16 output uses up
+# to 0.2 of at the serve shapes (phase 3, phase 11 (e)); a gradient
+# through one bf16 layer carries errors of the same order as its output
+BF16_GRAD_TOL = 5e-2
+DENSE_BF16_PEAK = PEAK_FLOPS["bfloat16"]
+
+
+def _train_counted(argv, ocfg=None):
+    """``repro_torch.launch.train.main(argv, ocfg=ocfg)`` with every
+    kernel's launch counts set to 0 just before and read just after, and the
+    peak device memory of the run.  Returns (result, launches, launches by
+    variant, peak GB)."""
+    import torch
+    from repro_torch.launch import train
+    wrappers = _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(argv, ocfg=ocfg)
+    torch.cuda.synchronize()
+    return (res, {k: w.launches for k, w in wrappers.items()},
+            {k: dict(w.launches_by_variant) for k, w in wrappers.items()},
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _train_split(res, ocfg):
+    """Where a train step's time goes, after the run: one microbatch's
+    forward and backward, adding its gradients into the stacked fp32 sum,
+    and one AdamW update of the state (CUDA events around single calls,
+    two of each after a warm one); and a torch.profiler pass over one
+    microbatch with its gradient sum: device ms and the 8 longest
+    kernels."""
+    import torch
+    from repro_torch.models.convert import jax_layout
+    from repro_torch.train import data as data_mod
+    from repro_torch.train.optimizer import apply_updates_
+    from repro_torch.train.train_step import add_grads_, loss_and_grads, make_loss_fn
+    from repro_torch.train.tree import unflatten
+    lm, state = res.lm, res.state
+    cfg = lm.cfg
+    ds = data_mod.SyntheticDataset(data_mod.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=4096, global_batch=2, accum_steps=1), cfg)
+    mb = data_mod.batch_to_device(ds.batch(0), lm.device)
+    loss_fn = make_loss_fn(lm)
+    layout = jax_layout(lm)
+    gsum = {key: torch.zeros(shape, device=lm.device) for key, (shape, _) in layout.items()}
+    fwd_bwd, grad_sum = [], []
+    for i in range(3):
+        t = _time_ms(lambda: loss_fn({k: v[0] for k, v in mb.items()}).backward(), n=1,
+                     warmup=0)
+        g = _time_ms(lambda: add_grads_(gsum, layout, "bfloat16"), n=1, warmup=0)
+        if i:
+            fwd_bwd.append(t)
+            grad_sum.append(g)
+    grads = unflatten({k: v.div_(3) for k, v in gsum.items()})
+    out = {"fwd_bwd_ms": fwd_bwd, "grad_sum_ms": grad_sum,
+           "adamw_ms": _time_ms(lambda: apply_updates_(state["params"], grads, state["opt"],
+                                                        ocfg), n=2, warmup=1)}
+    del grads, gsum
+    out["microbatch_profile"] = _device_profile(lambda: loss_and_grads(lm, mb), top=8)
+    ms = out["microbatch_profile"]["device_ms"]
+    out["microbatch_profile"]["busy_share"] = (
+        None if ms is None else ms / (statistics.mean(fwd_bwd) + statistics.mean(grad_sum)))
+    return out
+
+
+def run_train(name, ocfg=None, steps=TRAIN_STEPS, after=None):
+    """Phase 12 (a), (b): ``launch.train`` on one model at full width, seeded
+    random bf16 weights, with the optimizer config its flags give unless
+    ``ocfg`` replaces it; the steps' losses, rates and times, the peak
+    memory and the kernel launches (K1 none: training takes the chunked
+    attention at 4,096 positions; K2 once per Mamba-2 layer, microbatch and
+    checkpointed recompute, "tc").  ``after(res)`` runs on the trained
+    result and its dict joins the line.  Frees the model before
+    returning."""
+    import torch
+    from repro_torch.configs import get_config
+    arch = TRAIN_RUNS[name]
+    cfg = get_config(arch)
+    res, counts, by_variant, peak_gb = _train_counted(
+        ["--arch", arch, "--steps", str(steps), *TRAIN_ARGS], ocfg=ocfg)
+    accum = 4
+    per_layer = 2 if cfg.remat != "none" else 1     # a checkpointed layer runs twice
+    want_k2 = cfg.num_layers * accum * per_layer * steps if cfg.family == "ssm" else 0
+    if counts["K1"] != 0 or counts["K2"] != want_k2 or by_variant["K2"]["tc"] != want_k2:
+        fail(f"{arch} train: launches {counts} {by_variant}, want K1 0 and K2 {want_k2} "
+             "(tc), one per Mamba-2 layer, microbatch and recompute")
+    losses = [s["loss"] for s in res.steps]
+    if len(res.steps) != steps or not all(math.isfinite(s["loss"]) and math.isfinite(
+            s["grad_norm"]) for s in res.steps):
+        fail(f"{arch} train: steps {res.steps}")
+    warm = [s["seconds"] for s in res.steps[1:]]
+    step_s = statistics.mean(warm) if warm else res.steps[0]["seconds"]
+    n_params = cfg.param_count()
+    line = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "remat": cfg.remat, "params": n_params, "seq": 4096, "global_batch": 8,
+            "accum": accum, "microbatch": 2, "steps": res.steps,
+            "warm_step_ms": [s * 1e3 for s in warm], "warm_step_ms_mean": step_s * 1e3,
+            "tokens_per_s": res.tokens_per_step / step_s, "peak_gb": peak_gb,
+            "dense_bf16_peak_share": 6 * n_params * res.tokens_per_step / step_s
+            / DENSE_BF16_PEAK, "launches": counts, "launches_by_variant": by_variant,
+            "k2_per_step": counts["K2"] // steps, "loss_first_last": [losses[0], losses[-1]],
+            "optimizer": dataclasses.asdict(res.ocfg)}
+    if steps == TRAIN_STEPS:
+        line["split"] = _train_split(res, res.ocfg)
+    if after is not None:
+        line.update(after(res))
+    log(f"train {name}: {json.dumps(line)}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def _grads_of(lm, batch, grad_dtype="float32"):
+    """(loss, {key path: gradient}) of one step's batch."""
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.train.tree import items
+    loss, grads = loss_and_grads(lm, batch, grad_dtype)
+    return float(loss), dict(items(grads))
+
+
+def _grad_shares(got, want, rtol, atol=0.0):
+    """Per leaf, ||got - want|| / (rtol ||want|| + atol), on the CPU in f64."""
+    out = {}
+    for key, w in want.items():
+        w = w.double().cpu()
+        d = float((got[key].double().cpu() - w).norm())
+        out[key] = d / (rtol * float(w.norm()) + atol)
+    return out
+
+
+def check_train_grads():
+    """Phase 12 (c): one step's loss and gradients of internlm2 and mamba2 cut
+    to 1 layer at full width, batch 2 x 256, f32 with TF32 off: the card
+    against the same port on the CPU from the same weights and batch
+    (each leaf within ``GRAD_TOL``); remat "dots" against "none" on the card
+    (``REMAT_TOL``); every leaf's gradient nonzero.  For mamba2 also the
+    gradient through ``SSDScanFn`` (K2 "fma" forward) against autograd
+    through the plain scan on the card, and the bf16 step (K2 "tc") against
+    the f32 one (``BF16_GRAD_TOL``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.lm import LM
+    from repro_torch.train import data as data_mod
+    out = {}
+    for name, arch in TRAIN_RUNS.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=1, dtype="float32")
+        ds = data_mod.SyntheticDataset(data_mod.DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=256, global_batch=2, accum_steps=1), cfg)
+        host_batch = ds.batch(0)
+        batch = data_mod.batch_to_device(host_batch, "cuda")
+        lm = LM(cfg, device="cuda", seed=0)
+        bf16_state = {k: v.clone() for k, v in lm.state_dict().items()}
+        lm.float().requires_grad_(True)
+        r = {"remat": cfg.remat}
+        wrappers = _reset_launches()
+        loss, grads = _grads_of(lm, batch)
+        r["k2_launches"] = dict(wrappers["K2"].launches_by_variant)
+        if cfg.family == "ssm" and r["k2_launches"] != {"tc": 0, "fma": 2}:
+            fail(f"{arch} 1 layer f32 step: K2 launches {r['k2_launches']}, want fma 2 "
+                 "(forward and recompute)")
+        zero = [k for k, g in grads.items() if not bool(g.abs().max() > 0)]
+        if zero:
+            fail(f"{arch} 1 layer: zero gradient in {zero}")
+        lm.cfg = dataclasses.replace(cfg, remat="none")
+        loss_none, grads_none = _grads_of(lm, batch)
+        lm.cfg = cfg
+        shares = _grad_shares(grads, grads_none, REMAT_TOL)
+        r["remat_dots_vs_none"] = {"loss_rel": abs(loss - loss_none) / abs(loss_none),
+                                   "max_share": max(shares.values()),
+                                   "worst": max(shares, key=shares.get)}
+        if not (r["remat_dots_vs_none"]["loss_rel"] <= REMAT_TOL
+                and r["remat_dots_vs_none"]["max_share"] <= 1):
+            fail(f"{arch} 1 layer: remat dots vs none {r['remat_dots_vs_none']}")
+        if cfg.family == "ssm":
+            real = ssm_mod.ssd_scan_hmajor
+            ssm_mod.ssd_scan_hmajor = ssd_scan.ssd_scan_hmajor_plain
+            try:
+                wrappers = _reset_launches()
+                loss_plain, grads_plain = _grads_of(lm, batch)
+            finally:
+                ssm_mod.ssd_scan_hmajor = real
+            if wrappers["K2"].launches:
+                fail(f"{arch}: the plain-scan reference launched K2")
+            shares = _grad_shares(grads, grads_plain, **GRAD_TOL)
+            r["ssdscanfn_vs_plain_on_card"] = {
+                "loss_rel": abs(loss - loss_plain) / abs(loss_plain),
+                "max_share": max(shares.values()), "worst": max(shares, key=shares.get)}
+            if not max(shares.values()) <= 1:
+                fail(f"{arch}: SSDScanFn gradient vs the plain scan's {shares}")
+            lm_bf = LM(dataclasses.replace(cfg, dtype="bfloat16"), device="cuda", seed=0)
+            lm_bf.load_state_dict(bf16_state)
+            lm_bf.requires_grad_(True)
+            wrappers = _reset_launches()
+            loss_bf, grads_bf = _grads_of(lm_bf, batch, "bfloat16")
+            if wrappers["K2"].launches_by_variant != {"tc": 2, "fma": 0}:
+                fail(f"{arch} bf16 step: K2 launches {wrappers['K2'].launches_by_variant}")
+            rel = {k: v * BF16_GRAD_TOL for k, v in
+                   _grad_shares(grads_bf, grads, BF16_GRAD_TOL).items()}
+            r["bf16_vs_f32"] = {"loss_rel": abs(loss_bf - loss) / abs(loss), "rel": rel,
+                                "max_rel": max(rel.values()), "bound": BF16_GRAD_TOL}
+            if not max(rel.values()) <= BF16_GRAD_TOL:
+                fail(f"{arch}: bf16 gradient vs f32 {rel}")
+            del lm_bf, grads_bf
+        # the same port on the CPU, from the same weights and batch
+        lm_cpu = LM(cfg, device="cpu", seed=0).float()
+        lm_cpu.load_state_dict(lm.state_dict())
+        lm_cpu.requires_grad_(True)
+        loss_cpu, grads_cpu = _grads_of(lm_cpu, data_mod.batch_to_device(host_batch, "cpu"))
+        shares = _grad_shares(grads, grads_cpu, **GRAD_TOL)
+        r["card_vs_cpu"] = {"loss": loss, "loss_cpu": loss_cpu,
+                            "loss_rel": abs(loss - loss_cpu) / abs(loss_cpu),
+                            "max_share": max(shares.values()),
+                            "worst": max(shares, key=shares.get)}
+        if not (r["card_vs_cpu"]["loss_rel"] <= GRAD_TOL["rtol"] and max(shares.values()) <= 1):
+            fail(f"{arch} 1 layer: card vs CPU {r['card_vs_cpu']} {shares}")
+        r["leaves"] = len(grads)
+        out[name] = r
+        log(f"train grads {name}: {json.dumps(r)}")
+        del lm, lm_cpu, grads, grads_cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_train_restart():
+    """Phase 12 (e): reduced internlm2 on the card, lr 1e-2, warmup 5, no
+    weight decay (tests/test_system.py:25-39): 14 steps with a checkpoint at
+    step 12 into directory A; step 12 copied into directory B and the same
+    command run there must resume from step 12; both step_14 checkpoints
+    must be equal byte for byte."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.train.optimizer import OptimizerConfig
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    a, b = root / "a", root / "b"
+    ocfg = OptimizerConfig(learning_rate=1e-2, warmup_steps=5, weight_decay=0.0,
+                           total_steps=14)
+    argv = ["--arch", "internlm2-1.8b", "--reduced", "--steps", "14", "--ckpt-every", "12",
+            "--log-every", "100", "--device", "cuda"]
+    res_a, counts_a, _, _ = _train_counted([*argv, "--ckpt-dir", str(a)], ocfg=ocfg)
+    shutil.copytree(a / "step_12", b / "step_12")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        res_b, counts_b, _, _ = _train_counted([*argv, "--ckpt-dir", str(b)], ocfg=ocfg)
+    print(text.getvalue(), end="", flush=True)
+    if "resumed from step 12" not in text.getvalue() or res_b.start_step != 12:
+        fail(f"train restart: the second run did not resume from step 12: {text.getvalue()!r}")
+    files = sorted(p.name for p in (a / "step_14").iterdir())
+    if files != sorted(p.name for p in (b / "step_14").iterdir()):
+        fail("train restart: the two step_14 checkpoints hold different files")
+    differ = [f for f in files if (a / "step_14" / f).read_bytes()
+              != (b / "step_14" / f).read_bytes()]
+    if differ:
+        fail(f"train restart: step_14 files differ: {differ}")
+    out = {"files": len(files), "equal": True,
+           "losses_12_13": [[s["loss"] for s in res_a.steps[12:]],
+                            [s["loss"] for s in res_b.steps]],
+           "loss_first_last": [res_a.steps[0]["loss"], res_a.steps[-1]["loss"]],
+           "launches": [counts_a, counts_b]}
+    log(f"train restart: {json.dumps(out)}")
+    return out
+
+
+# (d): the int8 path's master and parameters against the f32 path's from
+# the same decoded state, per leaf relative to the leaf's largest entry
+# (the same float32 operations on the same values: equal but for
+# rounding); its new codes decode within Q8_CODE_SHARE of half a block
+# scale s of the f32 path's new m and sqrt(v): round to nearest leaves
+# s / 2, and the float32 roundings of x / s and of q * s (|q| <= 127) add
+# up to 127 s 2^-24 each, so the share is at most 1 + 4 * 127 * 2^-24,
+# plus 3 roundings of the comparison itself
+Q8_MASTER_TOL = 1e-6
+Q8_CODE_SHARE = 1 + (4 * 127 + 3) * 2.0 ** -24
+
+
+def _q8_decode_here(q8):
+    """Int8 state {"q", "scale"} as f32: each block of 256 flattened codes
+    times its scale, written apart from ``quantized_state.q8_decode`` so
+    that a fault there shows against it."""
+    import torch
+    from repro_torch.train.quantized_state import BLOCK
+    q, scale = q8["q"], q8["scale"]
+    per_entry = scale.repeat_interleave(BLOCK)[:q.numel()].view(q.shape)
+    return q.float() * per_entry, per_entry
+
+
+def check_q8_update(res):
+    """Phase 12 (d): one more AdamW update from the int8 run's state, made
+    twice on the card from that state and one seeded N(0, 1) gradient: by
+    the int8 path, and by the f32 path from m and sqrt(v) decoded with
+    ``_q8_decode_here``.  A fault in the int8 path's decode moves its master
+    and parameters off the f32 path's (``Q8_MASTER_TOL``); a fault in its
+    encode moves its new codes more than half a block scale off the f32
+    path's new m and sqrt(v) (``Q8_CODE_SHARE``).  Also the state's bytes
+    (``state_bytes``) against int8 codes plus an f32 scale per block."""
+    import torch
+    from repro_torch.train.optimizer import apply_updates_
+    from repro_torch.train.quantized_state import n_blocks, state_bytes
+    from repro_torch.train.tree import items, tree_map
+    params, opt, ocfg = res.state["params"], res.state["opt"], res.ocfg
+    keys = [k for k, _ in items(params)]
+
+    def paired(*trees):
+        """{key path: the leaves of ``trees`` at it} (an int8 leaf as its dict)."""
+        out = []
+        tree_map(lambda p, *t: out.append(t), params, *trees)
+        return dict(zip(keys, out))
+
+    nbytes = state_bytes({"m": opt["m"], "v": opt["v"]})
+    want_bytes = 2 * sum(p.numel() + 4 * n_blocks(p.shape) for _, p in items(params))
+    device = opt["step"].device
+    g = torch.Generator(device=device).manual_seed(12)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g, device=device), params)
+    ref = {"m": tree_map(lambda p, q: _q8_decode_here(q)[0], params, opt["m"]),
+           "v": tree_map(lambda p, q: _q8_decode_here(q)[0].square_(), params, opt["v"]),
+           "master": tree_map(torch.clone, opt["master"]), "step": opt["step"].clone()}
+    ref_params = tree_map(torch.clone, params)
+    metrics_ref = apply_updates_(ref_params, grads, ref, dataclasses.replace(ocfg, state_bits=32))
+    metrics_q8 = apply_updates_(params, grads, opt, ocfg)
+    del grads
+    got_p, want_p = dict(items(params)), dict(items(ref_params))
+    master_rel, share = {}, {"m": {}, "sqrt_v": {}}
+    for key, (m, want_m, v, want_v, master, want_master) in paired(
+            opt["m"], ref["m"], opt["v"], ref["v"], opt["master"], ref["master"]).items():
+        master_rel[key] = max(float((master - want_master).abs().max()),
+                              float((got_p[key].float() - want_p[key].float()).abs().max())
+                              ) / (float(want_master.abs().max()) or 1.0)
+        for part, q8, want in (("m", m, want_m), ("sqrt_v", v, want_v.sqrt())):
+            dec, per_entry = _q8_decode_here(q8)
+            share[part][key] = float(((dec - want).abs() / (0.5 * per_entry)).max())
+            del dec, per_entry
+    del ref, ref_params, got_p, want_p
+    torch.cuda.empty_cache()
+    out = {"state_bytes": nbytes, "state_bytes_want": want_bytes,
+           "lr": [float(metrics_q8["lr"]), float(metrics_ref["lr"])],
+           "grad_norm": [float(metrics_q8["grad_norm"]), float(metrics_ref["grad_norm"])],
+           "master_rel_max": max(master_rel.values()),
+           "master_worst": max(master_rel, key=master_rel.get),
+           "master_tol": Q8_MASTER_TOL, "code_share_bound": Q8_CODE_SHARE,
+           **{f"{part}_code_share_max": max(d.values()) for part, d in share.items()},
+           **{f"{part}_code_worst": max(d, key=d.get) for part, d in share.items()}}
+    log(f"train q8 update: {json.dumps(out)}")
+    if nbytes != want_bytes:
+        fail(f"train q8: m and v take {nbytes} bytes, int8 codes and block scales {want_bytes}")
+    if not out["master_rel_max"] <= Q8_MASTER_TOL:
+        fail(f"train q8: the int8 update's master is {out['master_rel_max']:.3e} of the leaf "
+             f"off the f32 update's from the decoded state ({out['master_worst']})")
+    for part in share:
+        if not out[f"{part}_code_share_max"] <= Q8_CODE_SHARE:
+            fail(f"train q8: new {part} codes decode {out[f'{part}_code_share_max']:.4f} x half "
+                 f"a block scale off the f32 update's ({out[f'{part}_code_worst']})")
+    return {"q8_update": out}
+
+
+def run_train_phase():
+    """Phase 12: (e), (c), (a), (d), (b); returns the ``train`` JSON line's
+    body and the launches of (a) and (b) by kernel."""
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    line = {"restart": check_train_restart(), "grads_1_layer": check_train_grads()}
+    line["internlm2"] = run_train("internlm2")
+    # the schedule of (a)'s flags (warmup 1, cosine to 4 steps), int8 m and v
+    q8 = run_train("internlm2", steps=2, after=check_q8_update, ocfg=OptimizerConfig(
+        learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS, state_bits=8))
+    n = get_config(TRAIN_RUNS["internlm2"]).param_count()
+    saving_gb = 2 * (4 * n - (n + 4 * n / 256)) / 1e9       # m and v: f32 -> int8 + scales
+    drop = line["internlm2"]["peak_gb"] - q8["peak_gb"]
+    # the first update starts from zero m and v, so step 2's loss equals (a)'s;
+    # the updates that decode int8 state are held by ``check_q8_update``
+    loss_rel = abs(q8["steps"][1]["loss"] - line["internlm2"]["steps"][1]["loss"]) / abs(
+        line["internlm2"]["steps"][1]["loss"])
+    line["q8"] = {"peak_gb": q8["peak_gb"], "peak_drop_gb": drop,
+                  "predicted_drop_gb": saving_gb, "step2_loss": q8["steps"][1]["loss"],
+                  "step2_loss_rel": loss_rel, "steps": q8["steps"],
+                  "update": q8["q8_update"]}
+    log(f"train q8: {json.dumps(line['q8'])}")
+    if not (0.8 * saving_gb <= drop <= 1.2 * saving_gb and loss_rel <= 1e-2):
+        fail(f"train q8: peak drop {drop:.2f} GB (int8 m and v save {saving_gb:.2f} GB), "
+             f"step-2 loss {loss_rel:.2e} relative from the f32 state's (limit 1e-2)")
+    line["mamba2"] = run_train("mamba2")
+    line["phase_s"] = time.perf_counter() - t0
+    launches = {k: {TRAIN_RUNS[name]: line[name]["launches"][k] for name in TRAIN_RUNS}
+                for k in ("K1", "K2")}
+    return line, launches
 
 
 def _serve_times(res, prefill_warm_ms, checks):
@@ -1442,18 +1925,20 @@ _TIME_KEYS = ("ms", "device_ms", "fma_ms", "plain_ms", "library_ms", "library_de
 
 
 def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches,
-                 obs_launches, max_abs_err, t, family_launches, shapes):
+                 obs_launches, max_abs_err, t, family_launches, shapes, train_launches):
     """One kernel of the serve paths: its tensor-core variant, which the bf16
     main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs.
     ``launches`` counts the serve run, ``duet_launches`` the pipeline run of
     phase 7, ``cli_launches`` the command line's kernel-suite run of phase 8,
     ``obs_launches`` the observed kernel-suite run of phase 10, and
-    ``<family>_launches`` phase 11's serve run of that family; ``shapes``
-    holds the kernel at phase 11's new shapes."""
+    ``<family>_launches`` phase 11's serve run of that family,
+    ``train_launches`` phase 12's train runs by model; ``shapes`` holds the
+    kernel at phase 11's new shapes."""
     return {"name": name, "route": "cuda", "variant": "tc", "source": source,
             "replaces": replaces, "launches": launches, "duet_launches": duet_launches,
             "cli_launches": cli_launches, "obs_launches": obs_launches,
             **{f"{fam}_launches": n for fam, n in family_launches.items()},
+            "train_launches": train_launches,
             "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS}, "shapes": shapes}
 
 
@@ -1510,6 +1995,9 @@ def main():
     new_shapes = check_new_shapes()
     print(json.dumps({"families": {**families, "card": card,
                                    "phase_s": time.perf_counter() - t_fam}}))
+    torch.cuda.empty_cache()
+    train_line, train_launches = run_train_phase()
+    print(json.dumps({"train": {**train_line, "card": card}}))
 
     times = {
         "card": card,
@@ -1534,11 +2022,11 @@ def main():
         _kernel_line("K1 flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:32", k1_launches,
                      duet_launches["K1"], cli_launches["K1"], obs_launches["K1"], k1_err, k1,
-                     fam_launches["K1"], shapes["K1"]),
+                     fam_launches["K1"], shapes["K1"], train_launches["K1"]),
         _kernel_line("K2 ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:31", k2_launches,
                      duet_launches["K2"], cli_launches["K2"], obs_launches["K2"], k2_err, k2,
-                     fam_launches["K2"], shapes["K2"]),
+                     fam_launches["K2"], shapes["K2"], train_launches["K2"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,10 @@ dim that is a multiple of 16 runs on the tensor cores ("tc"), every other
 call on CUDA cores in fp32 ("fma"); ``k1_variant`` chooses.
 
 ``flash_attention_hmajor`` launches the kernel for CUDA tensors and runs
-the plain version only for tensors on the CPU.
+the plain version only for tensors on the CPU.  K1 has no backward, as the
+JAX package's Pallas kernel has none (``jax.grad`` through it fails), so a
+call under autograd raises, on the CPU too: training takes the "dot",
+"chunked" or "auto" attention paths, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -59,6 +62,12 @@ def _check(q, k, v):
         raise ValueError("q, k and v must be on one device")
 
 
+def _refuse_autograd(q, k, v):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("K1 (flash attention) has no backward: train with attention_impl "
+                           "'dot', 'chunked' or 'auto', as the JAX package does")
+
+
 def flash_attention_hmajor_plain(q, k, v, *, causal=True, window=0,
                                  kv_valid=None, softmax_scale=None):
     """The plain PyTorch version of K1 (the semantics of ``attention_ref``)."""
@@ -77,6 +86,7 @@ def flash_attention_hmajor(q, k, v, *, causal=True, window=0, kv_valid=None,
     ``.launches_by_variant``).
     """
     _check(q, k, v)
+    _refuse_autograd(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_hmajor_plain(q, k, v, causal=causal, window=window,
                                             kv_valid=kv_valid,
@@ -94,6 +104,7 @@ def _launch(q, k, v, variant, *, causal, window, kv_valid, softmax_scale):
                                          k1_variant(q.dtype, q.shape[3]) != "tc"):
         raise ValueError(f"K1 variant {variant!r} does not take {q.dtype} at "
                          f"head_dim {q.shape[3]}")
+    _refuse_autograd(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

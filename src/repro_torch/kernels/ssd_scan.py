@@ -11,6 +11,15 @@ in fp32 ("fma"); ``k2_variant`` chooses.
 
 ``ssd_scan_hmajor`` launches the kernel for CUDA tensors and runs the plain
 version only for tensors on the CPU.
+
+Under autograd (grad enabled and an input that requires grad), a CUDA call
+goes through ``SSDScanFn``: K2 computes the forward, and the backward
+recomputes the plain chunked scan on the saved inputs and differentiates
+it with autograd.  That is the gradient of the JAX package's train path,
+which differentiates its jnp ``ssd_chunked`` (the Pallas kernel has no
+backward either).  So the plain version here computes a gradient that no
+kernel computes; no forward falls back to it.  A bare ``_launch`` refuses
+inputs that require grad, since its outputs would carry no gradient.
 """
 from __future__ import annotations
 
@@ -87,30 +96,37 @@ def ssd_scan_hmajor_plain(x, dt, A, B_in, C_in, *, chunk=DEFAULT_CHUNK, h0=None)
 
     The tail is zero-padded to a multiple of ``chunk`` with dt = 0, an exact
     no-op for the outputs at positions < S and for the final state.  Returns
-    (y [B,H,S,P] in x's dtype, state [B,H,P,N] fp32).
+    (y [B,H,S,P] in x's dtype, state [B,H,P,N] fp32).  It computes in
+    float32, or in float64 for float64 inputs (the gradient check of
+    ``SSDScanFn``).
     """
     Bz, H, S, P = x.shape
     G, N = B_in.shape[1], B_in.shape[3]
     hg = H // G
+    ct = torch.promote_types(x.dtype, torch.float32)
     pad = (-S) % chunk
-    xf = F.pad(x.float(), (0, 0, 0, pad)).reshape(Bz, G, hg, -1, chunk, P)
-    dtf = F.pad(dt.float(), (0, pad)).reshape(Bz, G, hg, -1, chunk)
-    Bf = F.pad(B_in.float(), (0, 0, 0, pad)).reshape(Bz, G, -1, chunk, N)
-    Cf = F.pad(C_in.float(), (0, 0, 0, pad)).reshape(Bz, G, -1, chunk, N)
+    xf = F.pad(x.to(ct), (0, 0, 0, pad)).reshape(Bz, G, hg, -1, chunk, P)
+    dtf = F.pad(dt.to(ct), (0, pad)).reshape(Bz, G, hg, -1, chunk)
+    Bf = F.pad(B_in.to(ct), (0, 0, 0, pad)).reshape(Bz, G, -1, chunk, N)
+    Cf = F.pad(C_in.to(ct), (0, 0, 0, pad)).reshape(Bz, G, -1, chunk, N)
     nc = xf.shape[3]
-    Ar = A.float().reshape(G, hg)[None, :, :, None]                  # [1,G,hg,1]
-    h = (torch.zeros((Bz, G, hg, P, N), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float().reshape(Bz, G, hg, P, N))
+    Ar = A.to(ct).reshape(G, hg)[None, :, :, None]                  # [1,G,hg,1]
+    h = (torch.zeros((Bz, G, hg, P, N), dtype=ct, device=x.device)
+         if h0 is None else h0.to(ct).reshape(Bz, G, hg, P, N))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
     ys = []
     for c in range(nc):
         xc, dtc, Bc, Cc = xf[:, :, :, c], dtf[:, :, :, c], Bf[:, :, c], Cf[:, :, c]
         cum = torch.cumsum(dtc * Ar, dim=-1)                         # [b,G,hg,Q]
         total = cum[..., -1]                                         # [b,G,hg]
-        # intra-chunk: exp(cum_i - cum_j) overflows for i < j; where() drops it
+        # intra-chunk: cum_i - cum_j for i < j is positive and exp() of it
+        # overflows once a chunk's decay passes ~88 (mamba2-1.3b's does at
+        # full width), so the exponent is masked before the exp: the kept
+        # entries are as before, and no inf meets the gradient (JAX's jnp
+        # ssd_chunked masks after the exp, and its gradient is NaN there)
         CB = torch.einsum("bgin,bgjn->bgij", Cc, Bc)                 # [b,G,Q,Q]
-        decay = torch.exp(cum[..., :, None] - cum[..., None, :])     # [b,G,hg,Q,Q]
-        att = torch.where(tri, CB[:, :, None] * decay * dtc[..., None, :], 0.0)
+        seg = torch.where(tri, cum[..., :, None] - cum[..., None, :], -torch.inf)
+        att = CB[:, :, None] * torch.exp(seg) * dtc[..., None, :]    # [b,G,hg,Q,Q]
         y = torch.einsum("bghij,bghjp->bghip", att, xc)
         # inter-chunk through the carried state
         Ch = torch.einsum("bgqn,bghpn->bghqp", Cc, h)
@@ -135,13 +151,51 @@ def ssd_scan_hmajor(x, dt, A, B_in, C_in, *, chunk=DEFAULT_CHUNK, h0=None):
     by variant, in ``.launches_by_variant``); the kernel tiles the sequence
     in chunks of its own length (64 rows, so that the [Q,Q] tile fits in
     shared memory) and ignores ``chunk``: the result depends on the chunk
-    length only through float rounding.
+    length only through float rounding.  Under autograd the launch goes
+    through ``SSDScanFn``, whose backward takes chunks of ``chunk`` rows.
     """
     _check(x, dt, A, B_in, C_in, h0)
     if x.device.type == "cpu":
         return ssd_scan_hmajor_plain(x, dt, A, B_in, C_in, chunk=chunk, h0=h0)
+    if _wants_grad(x, dt, A, B_in, C_in, h0):
+        return SSDScanFn.apply(x, dt, A, B_in, C_in, h0, chunk)
     return _launch(x, dt, A, B_in, C_in, h0, k2_variant(x.dtype, x.shape[3], B_in.shape[3]),
                    x.dtype)
+
+
+def _wants_grad(*tensors):
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """K2 under autograd: the kernel's forward (``k2_variant``'s choice, y in
+    x's type), and a backward that reruns the plain chunked scan with chunks
+    of ``chunk`` rows on detached copies of the saved inputs and returns its
+    autograd gradient (a state gradient that is None counts as zero)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_in, C_in, h0, chunk):
+        y, state = _launch(x, dt, A, B_in, C_in, h0,
+                           k2_variant(x.dtype, x.shape[3], B_in.shape[3]), x.dtype)
+        ctx.save_for_backward(x, dt, A, B_in, C_in, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(need)
+                   for t, need in zip(ctx.saved_tensors, needs)]
+            y, state = ssd_scan_hmajor_plain(*ins[:5], chunk=ctx.chunk, h0=ins[5])
+            pairs = [(o, g) for o, g in ((y, gy), (state, gstate)) if g is not None]
+            wanted = [t for t, need in zip(ins, needs) if t is not None and need]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                             [g for _, g in pairs], allow_unused=True)
+                         if pairs and wanted else [None] * len(wanted))
+        return (*(next(grads) if t is not None and need else None
+                  for t, need in zip(ins, needs)), None)
 
 
 def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=TC_TF32):
@@ -159,6 +213,9 @@ def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=TC_TF32):
     if y_dtype != x.dtype and not (variant == "tc" and y_dtype == torch.float32):
         raise ValueError(f"K2 {variant} does not write y in {y_dtype} from {x.dtype} x")
     tf32 = tf32 and variant == "tc"
+    if _wants_grad(x, dt, A, B_in, C_in, h0):
+        raise RuntimeError("K2 launched on inputs that require grad would return outputs "
+                           "without a gradient: call ssd_scan_hmajor, which takes SSDScanFn")
     if x.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {x.device}")
     tensors = (x, dt, A, B_in, C_in) + (() if h0 is None else (h0,))

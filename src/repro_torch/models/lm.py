@@ -34,6 +34,14 @@ Design notes
   the cross K/V are computed once at prefill and cached as
   ``{"self": ..., "cross": ...}``.  The vlm family (llava) prepends
   ``embeds_prefix`` to the token embeddings.
+* Parameters are created with ``requires_grad=False`` (serving);
+  ``lm.requires_grad_(True)`` makes them trainable.  A train forward under
+  autograd checkpoints each layer (each hybrid group) as ``cfg.remat``
+  asks, where JAX rematerialises its scan body: "none" saves every
+  activation, "full" only the layer's inputs, and "dots" (JAX's
+  ``dots_with_no_batch_dims_saveable``) also the outputs of matrix
+  products without batch dimensions (``torch.utils.checkpoint`` with a
+  selective-checkpoint policy).
 """
 from __future__ import annotations
 
@@ -42,6 +50,8 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -135,6 +145,28 @@ def _quantize_kv(x):
     scale = torch.clamp(scale, min=1e-8)
     q = torch.round(x.float() / scale[..., None])
     return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def _save_unbatched_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of matrix products that have no
+    batch dimension.  ``x @ w`` reaches the dispatcher as ``mm``, and an
+    einsum without batch axes (``bsd,dhk->bshk``) as ``bmm`` with a batch
+    of 1; attention scores and the experts' ``bmm`` have a real batch and
+    are recomputed, as in JAX.  K1 and K2 are ctypes launches that the
+    dispatcher never sees: only the ``empty`` buffers they fill are ops
+    here, and those are recomputed (and refilled) with the rest."""
+    if op is torch.ops.aten.mm.default or (op is torch.ops.aten.bmm.default
+                                           and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_unbatched_products)
+
+
+def _direct(fn, *args, **kwargs):
+    return fn(*args, **kwargs)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -348,6 +380,19 @@ class LM(nn.Module):
         y = swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
         return y, torch.zeros((), device=x.device)
 
+    def _layer_call(self, train: bool):
+        """How a stack calls one layer (or hybrid group): through
+        ``torch.utils.checkpoint`` with ``cfg.remat``'s policy when it runs
+        the train forward under autograd, else directly."""
+        remat = self.cfg.remat
+        if remat not in ("none", "dots", "full"):
+            raise ValueError(f"unknown remat {remat!r}: want none, dots or full")
+        if not train or remat == "none" or not torch.is_grad_enabled():
+            return _direct
+        extra = {"context_fn": _dots_contexts} if remat == "dots" else {}
+        return lambda fn, *args, **kwargs: checkpoint(fn, *args, use_reentrant=False,
+                                                      **extra, **kwargs)
+
     # ------------------------------------------------------------ forward
     def forward(self, tokens, *, embeds_prefix=None, enc_embeds=None, labels=None,
                 mode="train", kv_dtype="bfloat16"):
@@ -404,13 +449,18 @@ class LM(nn.Module):
         """The non-causal encoder tower over frames cast to ``cfg.dtype``."""
         cfg = self.cfg
         x = enc_embeds.to(torch_dtype(cfg.dtype))
-        for blk in self.encoder:
+        call = self._layer_call(train=True)
+
+        def layer(x, blk):
             h, _ = self._attn(rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn,
                               window=None, theta=cfg.rope_theta, causal=False)
             x = x + h
             m = blk.mlp
-            x = x + swiglu(rms_norm(x, blk.ln2, cfg.norm_eps),
-                           m["w_gate"], m["w_up"], m["w_down"])
+            return x + swiglu(rms_norm(x, blk.ln2, cfg.norm_eps),
+                              m["w_gate"], m["w_up"], m["w_down"])
+
+        for blk in self.encoder:
+            x = call(layer, x, blk)
         return rms_norm(x, self.encoder_norm, cfg.norm_eps)
 
     # ------------------------------------------------------- layer stacks
@@ -434,14 +484,18 @@ class LM(nn.Module):
         decode = pos is not None
         aux = torch.zeros((), device=x.device)
         new_layers = []
+        call = self._layer_call(train=not decode and not want_cache)
+
+        def layer(x, blk, h0, conv0):
+            h, states = ssm_mod.mamba_block(rms_norm(x, blk.ln, cfg.norm_eps), blk.mamba,
+                                            cfg, h0=h0, conv0=conv0, decode=decode)
+            return x + h, states
+
         for i, blk in enumerate(self.blocks):
             h0 = conv0 = None
             if decode:
                 h0, conv0 = cache["ssm"][i], cache["conv"][i]
-            h, (h_new, conv_new) = ssm_mod.mamba_block(
-                rms_norm(x, blk.ln, cfg.norm_eps), blk.mamba, cfg, h0=h0,
-                conv0=conv0, decode=decode)
-            x = x + h
+            x, (h_new, conv_new) = call(layer, x, blk, h0, conv0)
             if decode:
                 cache["ssm"][i].copy_(h_new)
                 cache["conv"][i].copy_(conv_new)
@@ -489,13 +543,14 @@ class LM(nn.Module):
         if is_encdec and pos is not None:
             self_cache, cross_cache = cache["self"], cache["cross"]
         new_self, new_cross, auxes = [], [], []
+        call = self._layer_call(train=cache is None and prefill_kv_dtype is None)
         for i in range(len(self.blocks)):
             layer_cache = (None if self_cache is None else
                            {name: t[i] for name, t in self_cache.items()})
             layer_cross = (None if cross_cache is None else
                            {name: t[i] for name, t in cross_cache.items()})
-            x, new_c, new_x, aux = self._layer(
-                i, x, cache=layer_cache, pos=pos, enc_out=enc_out,
+            x, new_c, new_x, aux = call(
+                self._layer, i, x, cache=layer_cache, pos=pos, enc_out=enc_out,
                 cross_cache=layer_cross, prefill_kv_dtype=prefill_kv_dtype)
             new_self.append(new_c)
             new_cross.append(new_x)
@@ -516,46 +571,14 @@ class LM(nn.Module):
         followed by a dense or MoE FFN.  Decode writes the group's KV, SSM
         and conv states into ``cache`` in place; prefill with
         ``prefill_kv_dtype`` emits them."""
-        cfg = self.cfg
-        per = cfg.hybrid.attn_period
         decode = pos is not None
+        call = self._layer_call(train=not decode and prefill_kv_dtype is None)
         auxes, new_groups = [], []
-        for g, grp in enumerate(self.groups):
-            aux_total = torch.zeros((), device=x.device)
-            attn_c, states, convs = None, [], []
-            mamba_i = moe_i = dense_i = 0
-            for i in range(per):
-                xin = rms_norm(x, grp.ln_mix[i], cfg.norm_eps)
-                if cfg.is_attn_layer(i):
-                    layer_cache = ({name: t[g] for name, t in cache["attn"].items()}
-                                   if decode else None)
-                    h, attn_c = self._attn(xin, grp.attn, window=None, theta=cfg.rope_theta,
-                                           cache=layer_cache, pos=pos,
-                                           prefill_kv_dtype=prefill_kv_dtype)
-                else:
-                    h0 = conv0 = None
-                    if decode:
-                        h0, conv0 = cache["ssm"][g, mamba_i], cache["conv"][g, mamba_i]
-                    h, (h_new, conv_new) = ssm_mod.mamba_block(
-                        xin, grp.mamba[mamba_i], cfg, h0=h0, conv0=conv0, decode=decode)
-                    if decode:
-                        cache["ssm"][g, mamba_i].copy_(h_new)
-                        cache["conv"][g, mamba_i].copy_(conv_new)
-                    states.append(h_new)
-                    convs.append(conv_new)
-                    mamba_i += 1
-                x = x + h
-                xf = rms_norm(x, grp.ln_ffn[i], cfg.norm_eps)
-                if cfg.is_moe_layer(i):
-                    y, aux = self._ffn(xf, grp.moe[moe_i], is_moe=True)
-                    aux_total = aux_total + aux
-                    moe_i += 1
-                else:
-                    y, _ = self._ffn(xf, grp.dense_ffn[dense_i], is_moe=False)
-                    dense_i += 1
-                x = self.plan.act(x + y, "batch", "seq", "embed")
-            auxes.append(aux_total / per)
-            new_groups.append((attn_c, states, convs))
+        for g in range(len(self.groups)):
+            x, aux, states = call(self._group, g, x, cache=cache, pos=pos,
+                                  prefill_kv_dtype=prefill_kv_dtype)
+            auxes.append(aux)
+            new_groups.append(states)
         aux = torch.stack(auxes).mean()
         if decode:
             return x, cache, aux
@@ -565,6 +588,48 @@ class LM(nn.Module):
                             for name in new_groups[0][0]},
                    "ssm": torch.stack([torch.stack(s) for _, s, _ in new_groups]),
                    "conv": torch.stack([torch.stack(c) for _, _, c in new_groups])}, aux
+
+    def _group(self, g, x, *, cache=None, pos=None, prefill_kv_dtype=None):
+        """Group ``g`` of the hybrid stack.  Returns (x, the group's aux loss
+        over its period, (attention cache entry, SSM states, conv states))."""
+        cfg = self.cfg
+        grp = self.groups[g]
+        per = cfg.hybrid.attn_period
+        decode = pos is not None
+        aux_total = torch.zeros((), device=x.device)
+        attn_c, states, convs = None, [], []
+        mamba_i = moe_i = dense_i = 0
+        for i in range(per):
+            xin = rms_norm(x, grp.ln_mix[i], cfg.norm_eps)
+            if cfg.is_attn_layer(i):
+                layer_cache = ({name: t[g] for name, t in cache["attn"].items()}
+                               if decode else None)
+                h, attn_c = self._attn(xin, grp.attn, window=None, theta=cfg.rope_theta,
+                                       cache=layer_cache, pos=pos,
+                                       prefill_kv_dtype=prefill_kv_dtype)
+            else:
+                h0 = conv0 = None
+                if decode:
+                    h0, conv0 = cache["ssm"][g, mamba_i], cache["conv"][g, mamba_i]
+                h, (h_new, conv_new) = ssm_mod.mamba_block(
+                    xin, grp.mamba[mamba_i], cfg, h0=h0, conv0=conv0, decode=decode)
+                if decode:
+                    cache["ssm"][g, mamba_i].copy_(h_new)
+                    cache["conv"][g, mamba_i].copy_(conv_new)
+                states.append(h_new)
+                convs.append(conv_new)
+                mamba_i += 1
+            x = x + h
+            xf = rms_norm(x, grp.ln_ffn[i], cfg.norm_eps)
+            if cfg.is_moe_layer(i):
+                y, aux = self._ffn(xf, grp.moe[moe_i], is_moe=True)
+                aux_total = aux_total + aux
+                moe_i += 1
+            else:
+                y, _ = self._ffn(xf, grp.dense_ffn[dense_i], is_moe=False)
+                dense_i += 1
+            x = self.plan.act(x + y, "batch", "seq", "embed")
+        return x, aux_total / per, (attn_c, states, convs)
 
     # -------------------------------------------------------------- decode
     def decode(self, cache, token, pos: int):

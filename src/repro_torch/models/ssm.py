@@ -1,9 +1,9 @@
 """Mamba-2 (SSD, state-space duality) block [arXiv:2405.21060]: the
 counterpart of ``repro.models.ssm``.
 
-Prefill evaluates the SSD over the whole sequence in chunks: on the card
-through the hand-written K2 kernel, on the CPU through its plain chunked
-block decomposition (``kernels.ssd_scan``).  Decode uses the O(1)
+Prefill and training evaluate the SSD over the whole sequence in chunks:
+on the card through the hand-written K2 kernel, on the CPU through its
+plain chunked block decomposition (``kernels.ssd_scan``).  Decode uses the O(1)
 recurrence: h = h * exp(A dt) + dt * B (x) x ; y = C . h.  Dtypes follow
 the JAX block step by step (softplus, silu, the skip term, the gate and the
 norm in float32; the conv tail cached in float32).
@@ -30,7 +30,9 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     returns (y [b,S,H,P] in x's dtype, h_final [b,H,P,N] fp32)
 
     CPU tensors take the plain chunked scan with chunks of ``chunk`` rows;
-    CUDA tensors take K2 (which tiles by its own chunk length).
+    CUDA tensors take K2 (which tiles by its own chunk length), under
+    autograd inside ``SSDScanFn``, whose backward differentiates the plain
+    scan with chunks of ``chunk`` rows.
     """
     y, h = ssd_scan_hmajor(
         x.movedim(1, 2).contiguous(), dt.movedim(1, 2).contiguous(), A.float(),

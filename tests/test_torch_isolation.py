@@ -1,4 +1,5 @@
-"""The port stands alone: no jax, nothing of ``repro``; no silent CPU fallback."""
+"""The port stands alone: no jax, nothing of ``repro``, no ``ml_dtypes``; no
+silent CPU fallback."""
 import ast
 import pkgutil
 import subprocess
@@ -12,7 +13,7 @@ pytest.importorskip("jax")
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _modules():
@@ -36,14 +37,18 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.benchmarks.kernel_bench", "repro_torch.faas.traces",
             "repro_torch.faas.chaos", "repro_torch.core.experiment",
             "repro_torch.core.autotune", "repro_torch.cb.cli",
-            "repro_torch.kernels.stats_boot", "repro_torch.models.moe"} <= set(mods)
+            "repro_torch.kernels.stats_boot", "repro_torch.models.moe",
+            "repro_torch.train.optimizer", "repro_torch.train.quantized_state",
+            "repro_torch.train.data", "repro_torch.train.checkpoint",
+            "repro_torch.train.train_step", "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
         "    sys.modules[name] = None\n"          # any import of them now raises
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                                     'ml_dtypes')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok', len(" + repr(mods) + "))\n")
@@ -113,6 +118,14 @@ def test_serve_without_device_flag_wants_cuda():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--reduced", "--batch", "1", "--prompt-len", "4", "--gen", "2"])
+
+
+def test_train_without_device_flag_wants_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--reduced", "--steps", "1"])
 
 
 def test_serve_on_cpu_when_asked(capsys):
