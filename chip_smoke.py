@@ -124,6 +124,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    peak that 6 N tokens per step is, then one microbatch's forward and
    backward, gradient sum and AdamW update timed and profiled.  The
    ``train`` JSON line gives each part's numbers.
+13. bench: the paper's tables, the benchmark scripts and the examples, as
+   users start them, outputs under ``build/chip_smoke_bench/``.  (a)
+   ``repro_torch.benchmarks.run.main([])`` in this process: every table of
+   ``ALL_TABLES`` on the host, then the kernel duets on the card; each
+   simulated table's rows, their host fields dropped, must equal the JAX
+   package's at seed 0 by SHA-256, the duets must come back with 12 pairs
+   and a finite median and CI each, K2 "fma" (the SSD duet) must have been
+   launched and K1 not, and the only ``-1`` row may be the roofline row's
+   "no dry-run results" line; the tables' harness seconds are printed as
+   host numbers.  (b) the benchmark scripts' CI lines on the host: ``chaos_bench
+   --quick --check``, ``obs_bench --quick --check``, ``replan_bench --quick
+   --check-baseline BENCH_replan.json`` and ``service_bench
+   --check-baseline BENCH_service.json`` must exit 0; ``perf_bench --quick``
+   and ``engine_bench --quick`` must exit 0 (their own equality and
+   bit-exact assertions), and their speedups, host numbers, are printed,
+   not gated.  (c) the examples: ``continuous_benchmarking`` on the host,
+   its output equal to the JAX example's by SHA-256; ``quickstart`` on the
+   card, one verdict line; ``serve_batch`` on the card for internlm2 and
+   mamba2 (reduced, batch 4, prompt 32): K1 or K2 "tc" once per prefill
+   layer and none in decode, finite logits, and the kernel held against
+   its plain version on the inputs the model gave its first call;
+   ``train_lm`` on the card, its 200 steps' losses finite and the last
+   below the first.  The ``bench`` JSON line gives each part's numbers.
 
 The last line of standard output is the device line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
@@ -912,23 +935,14 @@ def _sha256(text):
 
 
 def _cli(argv):
-    """``repro_torch.cb.cli.main(argv)`` in this process: (exit code, stdout
-    lines, wall s, {kernel: launches}), the counts set to 0 just before.
-    The command line installs its observability context and leaves it in
-    place; it is removed after the run, so that the next run starts clean."""
-    import contextlib
-    import io
+    """``repro_torch.cb.cli.main(argv)`` in this process (``_in_process``):
+    (exit code, stdout lines, wall s, {kernel: launches}), the counts set to
+    0 just before.  The command line installs its observability context and
+    leaves it in place; it is put back after the run, so that the next run
+    starts clean."""
     from repro_torch.cb import cli
-    from repro_torch.obs import set_obs
-    wrappers = _reset_launches()
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        code = cli.main(argv)
-    wall = time.perf_counter() - t0
-    set_obs(None)
-    return (code, buf.getvalue().splitlines(), wall,
-            {k: w.launches for k, w in wrappers.items()})
+    code, out, _, wall, launches, _, _ = _in_process(cli.main, argv)
+    return code, out.splitlines(), wall, launches
 
 
 def run_cli():
@@ -1911,6 +1925,307 @@ def run_train_phase():
     return line, launches
 
 
+# ---------------------------------------------- phase 13: tables, benchmark scripts, examples
+# each simulated table's rows of `python -m benchmarks.run --skip-real` (the JAX
+# package, seed 0, on a CPU), its host fields dropped (``_table_digest``), by
+# SHA-256; the kernel duets and the roofline row are held by their structure
+TABLE_SHA256 = {
+    "aa": "6f06e3039ef6689951f6a8bd629215b96b12a087df7586cefb6d6668f5d70126",
+    "baseline_vs_original": "8bb659a52eaa278d126e260334feb5daac5fe1904cad86572e0849862e3a7b8b",
+    "replication": "f9c1a6e82a493eadd987828cb32c9c5db8c4764074b35eb5fe9c38f9ab5978c6",
+    "lower_memory": "bcd9e576a9d7b8017657cd849d5648a37050a539abd45241fcfb16a69178031d",
+    "single_repeat": "3253bc1bb19dce8421702a1fa33afe367e01f88fd915c550d441cf0361b3ed30",
+    "possible_changes": "18df8dd125741aa58e91f023cb82f746b3d5d67857ea1e933668279734e659e2",
+    "ci_repeats": "9ba7b543bb50896e385a287be42d858a9479058ce6194b535d71633a6c90123e",
+    "time_cost_headline": "b2c4571da6e00a727be92480bf52fb16e7c924c04aeff205a3d418e8db353032",
+    "parallelism_curve": "65c392b96dcf41e763145e9f114fdb10eeb5bddd6144d47b28e2dc88f5f3ced4",
+    "memory_autotune": "ea975b41216175a4f4e720d9523595c9ba4e79b6761877ba0d35427f1f0e108d",
+    "adaptive_vs_fixed": "3c51d65dc4a12cf12d8ec628ac46fe35ead96fc894b0d0c22f7f8d169a78b881",
+    "pipeline_vs_full": "c10740db49d98bf61020717a5e725e4c59df8456b6e555f5597797a73d7c7d2a",
+    "service_pareto": "74c48b6022481bdbc020b5a08b11fb1a71fcf441a224ae6df90441ef605cec6d",
+    "multi_tenant_throughput": "1071f00dea92fb0721274ee532d9ed9dabb657c5ec2fe4dc5d5ce5ccfd9a4b13",
+    "chaos_robustness": "04cc62174d967b4a49c6dcff77d40797bc036e50bb183cc7e375d6ec15abc976",
+    "engine_scaling": "ceb873a74c0045925831746119f33af56dfd3b30f8c5f3afb1ea9b3befe41839",
+}
+# the host-clock fields of a table's rows: engine_scaling's live rows time the
+# host's engines; every other field is virtual time
+TABLE_HOST_FIELDS = {"engine_scaling": ("vec_us_per_inv", "scalar_us_per_inv", "speedup")}
+# the standard output of `python examples/continuous_benchmarking.py` (the JAX
+# package, on a CPU), by SHA-256
+CB_EXAMPLE_SHA256 = "6e98bd4ad27137909e6a453266ef5a33e64a58b011469b9725de94752e961e56"
+DUET_NAMES = ("attention_dot_vs_chunked", "rmsnorm_fused_vs_unfused",
+              "ssd_recurrence_vs_chunked")
+SERVE_BATCH_ARCHS = {"internlm2": "internlm2-1.8b", "mamba2": "mamba2-1.3b"}
+TRAIN_LM_STEPS = 200          # train_lm's default
+
+
+def _table_digest(name, rows):
+    """SHA-256 of one table's rows without its host fields (the ``live_n_*``
+    rows' of ``TABLE_HOST_FIELDS``), as sorted-key JSON."""
+    drop = TABLE_HOST_FIELDS.get(name, ())
+    rows = {k: ({f: x for f, x in v.items() if f not in drop}
+                if k.startswith("live_n_") else v) for k, v in rows.items()}
+    return _sha256(json.dumps(rows, sort_keys=True))
+
+
+def _in_process(fn, argv):
+    """``fn(argv)`` in this process with every kernel's launch counts set to
+    0 just before and read just after, its standard output and error
+    captured.  Returns (exit code, stdout, stderr, wall s, launches,
+    launches by variant, fn's return value).  An entry point that installs a
+    process-wide observability context or default engine has both put back
+    afterwards."""
+    import contextlib
+    import io
+    from repro_torch.faas import engine_vec
+    from repro_torch.obs import get_obs, set_obs
+    saved = get_obs(), engine_vec._DEFAULT_ENGINE
+    wrappers = _reset_launches()
+    out, err = io.StringIO(), io.StringIO()
+    code, ret = 0, None
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            ret = fn(argv)
+            code = ret if isinstance(ret, int) else 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        set_obs(saved[0])
+        engine_vec.set_default_engine(saved[1])
+    return (code, out.getvalue(), err.getvalue(), time.perf_counter() - t0,
+            {k: w.launches for k, w in wrappers.items()},
+            {k: dict(w.launches_by_variant) for k, w in wrappers.items()}, ret)
+
+
+def run_bench_tables():
+    """Phase 13 (a): ``repro_torch.benchmarks.run.main([])`` as a user starts
+    it: every paper table on the host, then the kernel duets on the card.
+    Returns the ``tables`` part of the bench line and its launches."""
+    from repro_torch.benchmarks import run
+    code, out, err, wall, launches, by_variant, _ = _in_process(run.main, [])
+    if code != 0:
+        fail(f"benchmarks.run: exit code {code}: {err[-2000:]}")
+    rows, errors = {}, {}
+    for line in out.splitlines():
+        parts = line.split(",", 2)
+        if len(parts) == 3 and parts[2].startswith("{"):
+            (errors if parts[1] == "-1" else rows)[parts[0]] = (float(parts[1]),
+                                                               json.loads(parts[2]))
+    if set(errors) != {"roofline"} or errors["roofline"][1] != {"error": run.NO_DRYRUN}:
+        fail(f"benchmarks.run: error rows {errors}; want only the roofline row's "
+             f"{run.NO_DRYRUN!r}")
+    digests = {name: _table_digest(name, r) for name, (_, r) in rows.items()
+               if name in TABLE_SHA256}
+    if sorted(rows) != sorted(list(TABLE_SHA256) + ["kernel_duets_real"]):
+        fail(f"benchmarks.run: tables {sorted(rows)}, want {sorted(TABLE_SHA256)} and "
+             "kernel_duets_real")
+    differ = sorted(name for name, d in digests.items() if d != TABLE_SHA256[name])
+    if differ:
+        fail(f"benchmarks.run: the rows of {differ} differ from the JAX package's: "
+             f"{ {n: rows[n][1] for n in differ} }")
+    duets = rows["kernel_duets_real"][1]
+    for name in DUET_NAMES:
+        d = duets.get(name, {})
+        vals = [d.get("median_diff_pct", math.nan)] + list(d.get("ci", [math.nan] * 2))
+        if d.get("n") != CB_CALLS or not all(math.isfinite(x) for x in vals):
+            fail(f"benchmarks.run kernel duets: {name} {d}, want {CB_CALLS} pairs and a finite "
+                 "median and CI")
+    if launches["K2"] < 1 or by_variant["K2"]["tc"] or launches["K1"]:
+        fail(f"benchmarks.run: launches {launches} {by_variant}; want K2 'fma' (the SSD duet, "
+             "f32) at least once and K1 none")
+    harness_s = {name: us / 1e6 for name, (us, _) in rows.items()}
+    log(f"benchmarks.run: exit 0 in {wall:.1f} s of host time; {len(digests)} tables equal "
+        f"the JAX package's by SHA-256; kernel duets {json.dumps(duets)}; launches {launches} "
+        f"{by_variant}; harness s by table (host) {json.dumps(harness_s)}")
+    return {"wall_s": wall, "harness_s": harness_s, "tables_equal_jax": len(digests),
+            "kernel_duets": duets, "launches": launches, "launches_by_variant": by_variant,
+            "roofline": errors["roofline"][1]["error"]}, launches
+
+
+def run_bench_ci_lines(out):
+    """Phase 13 (b): the benchmark scripts' CI lines on the host, ``--out`` under
+    ``out``: the virtual-time gates of the chaos, obs, replan and service
+    scripts must pass; perf_bench's and engine_bench's own equality and
+    bit-exact assertions must hold (their speedups are host numbers and are
+    printed, not gated).  Returns the ``ci_lines`` part of the bench line."""
+    import importlib
+    cases = [("chaos_bench", ["--quick", "--check"]),
+             ("obs_bench", ["--quick", "--check"]),
+             ("replan_bench", ["--quick", "--check-baseline", str(ROOT / "BENCH_replan.json")]),
+             ("service_bench", ["--check-baseline", str(ROOT / "BENCH_service.json")]),
+             ("perf_bench", ["--quick"]),
+             ("engine_bench", ["--quick"])]
+    line = {}
+    for name, argv in cases:
+        mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+        path = out / f"BENCH_{name.split('_')[0]}.json"
+        code, stdout, err, wall, launches, _, _ = _in_process(
+            mod.main, argv + ["--out", str(path)])
+        if code != 0 or any(launches.values()) or not path.is_file():
+            fail(f"{name} {' '.join(argv)}: exit code {code}, launches {launches}, wrote "
+                 f"{path.is_file()}: {err[-2000:]}")
+        doc = json.loads(path.read_text())
+        entry = {"wall_s": wall, "exit": code}
+        if name == "perf_bench":
+            entry["speedup"] = {k: r["speedup"] for k, r in doc["profiles"]["quick"].items()}
+        elif name == "engine_bench":
+            entry["speedup"] = {str(r["n_invocations"]): r["speedup"] for r in doc["sizes"]}
+        log(f"{name} {' '.join(argv)}: exit 0 in {wall:.2f} s of host time"
+            + (f", speedups (host) {entry['speedup']}" if "speedup" in entry else ""))
+        line[name] = entry
+    return line
+
+
+def _serve_batch(arch_key):
+    """``repro_torch.examples.serve_batch`` on the card for one arch, its
+    launches counted, its serve result kept and the inputs of its first K1
+    and K2 calls recorded, head-major.  Returns (result, launches, by
+    variant, the first calls' inputs by kernel, every call's shapes by
+    kernel, stdout, wall s)."""
+    from repro_torch.examples import serve_batch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.models import ssm as ssm_mod
+    kept, first, shapes = {}, {}, {"K1": Counter(), "K2": Counter()}
+    real = serve.run, kops.flash_attention, ssm_mod.ssd_scan_hmajor
+
+    def keep(argv, *, cfg=None):
+        kept["res"] = real[0](argv, cfg=cfg)
+        return kept["res"]
+
+    def grab_k1(q, k, v, *, causal=True, window=None, softmax_scale=None):
+        hmajor = tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+        first.setdefault("K1", (hmajor, dict(causal=causal, window=0 if window is None
+                                             else int(window), softmax_scale=softmax_scale)))
+        shapes["K1"][f"q={list(hmajor[0].shape)} k={list(hmajor[1].shape)} {q.dtype}"] += 1
+        return real[1](q, k, v, causal=causal, window=window, softmax_scale=softmax_scale)
+
+    def grab_k2(x, dt, A, B, C, **kw):
+        first.setdefault("K2", (tuple(t.clone() for t in (x, dt, A, B, C)), dict(kw)))
+        shapes["K2"][f"x={list(x.shape)} B={list(B.shape)} {x.dtype}"] += 1
+        return real[2](x, dt, A, B, C, **kw)
+
+    def drive(argv):
+        serve.run, kops.flash_attention, ssm_mod.ssd_scan_hmajor = keep, grab_k1, grab_k2
+        try:
+            return serve_batch.main(argv)
+        finally:
+            serve.run, kops.flash_attention, ssm_mod.ssd_scan_hmajor = real
+
+    code, out, err, wall, launches, by_variant, toks = _in_process(
+        drive, ["--arch", SERVE_BATCH_ARCHS[arch_key], "--device", "cuda"])
+    if code != 0 or "res" not in kept:
+        fail(f"serve_batch {arch_key}: exit code {code}: {err[-2000:]}")
+    return kept["res"], launches, by_variant, first, shapes, out, wall
+
+
+def check_serve_batch(arch_key):
+    """Phase 13 (c): serve_batch on the card (the reduced model, batch 4,
+    prompt 32, 16 new tokens, as the JAX example serves it): K1 "tc" once per
+    prefill attention layer (internlm2) or K2 "tc" once per Mamba-2 layer
+    (mamba2), none in decode; finite logits; and the kernel held against its
+    plain version on the inputs the model gave its first call."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_hmajor,
+                                                     flash_attention_hmajor_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
+    res, launches, by_variant, first, shapes, out, wall = _serve_batch(arch_key)
+    cfg = res.lm.cfg
+    kernel = "K1" if cfg.family != "ssm" else "K2"
+    want = {"K1": 0, "K2": 0, kernel: cfg.num_layers}
+    if launches != want or by_variant[kernel]["tc"] != cfg.num_layers:
+        fail(f"serve_batch {arch_key}: launches {launches} {by_variant}, want {want} on the "
+             "tensor cores, all in the prefill")
+    if res.tokens.shape != (4, 16) or not torch.isfinite(
+            res.prefill_logits[..., :cfg.vocab_size].float()).all():
+        fail(f"serve_batch {arch_key}: tokens {res.tokens.shape}, or prefill logits not finite")
+    args, kw = first[kernel]
+    if kernel == "K1":
+        pairs = [(flash_attention_hmajor(*args, **kw), flash_attention_hmajor_plain(*args, **kw))]
+    else:
+        pairs = list(zip(ssd_scan_hmajor(*args, **kw), ssd_scan_hmajor_plain(*args, **kw)))
+    torch.cuda.synchronize()
+    tol = KERNEL_TOL[(kernel, "bfloat16")]
+    err = share = 0.0
+    for a, b in pairs:
+        e, sh, bad = _agreement(a.float(), b.float(), tol)
+        if bad or not torch.isfinite(a.float()).all():
+            fail(f"serve_batch {arch_key}: {kernel} on the model's inputs, {bad} entries out "
+                 f"of atol=rtol={tol}")
+        err, share = max(err, e), max(share, sh)
+    line = {"arch": cfg.name, "layers": cfg.num_layers, "wall_s": wall, "launches": launches,
+            "launches_by_variant": by_variant,
+            "calls": {k: dict(v) for k, v in shapes.items() if v},
+            "kernel_vs_plain": {"kernel": kernel, "max_abs_err": err, "tolerance": tol,
+                                "tolerance_share": share},
+            "output": out.splitlines()}
+    log(f"serve_batch {arch_key}: {json.dumps(line)}")
+    del res
+    return line
+
+
+def run_examples(out):
+    """Phase 13 (c): the examples.  Returns the ``examples`` part of the bench
+    line and serve_batch's launches by arch."""
+    import re
+    import shutil
+    from repro_torch.examples import continuous_benchmarking, quickstart, train_lm
+    line = {}
+    code, stdout, err, wall, launches, _, _ = _in_process(
+        lambda argv: continuous_benchmarking.main(), [])
+    if code != 0 or _sha256(stdout) != CB_EXAMPLE_SHA256 or any(launches.values()):
+        fail(f"continuous_benchmarking: exit code {code}, stdout sha256 {_sha256(stdout)}, "
+             f"launches {launches}; want the JAX example's output and no launch")
+    line["continuous_benchmarking"] = {"wall_s": wall, "lines": len(stdout.splitlines())}
+    log(f"continuous_benchmarking: {len(stdout.splitlines())} lines in {wall:.1f} s of host "
+        "time, equal to the JAX example's by SHA-256")
+
+    code, stdout, err, wall, launches, _, _ = _in_process(quickstart.main, ["--device", "cuda"])
+    lines = stdout.splitlines()
+    if code != 0 or len(lines) != 2 or not re.fullmatch(
+            r"attention_dot_vs_chunked: median diff [+-]\d+\.\d% \(99% CI \[[+-]\d+\.\d%, "
+            r"[+-]\d+\.\d%\]\) over 15 duet pairs -> (PERFORMANCE CHANGE|no change)", lines[0]):
+        fail(f"quickstart: exit code {code}, output {lines}; want one verdict line")
+    line["quickstart"] = {"wall_s": wall, "output": lines, "launches": launches}
+    log(f"quickstart on the card: {lines[0]} ({lines[1]}; {wall:.1f} s of host time)")
+
+    line["serve_batch"] = {k: check_serve_batch(k) for k in SERVE_BATCH_ARCHS}
+
+    ckpt = out / "train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    code, stdout, err, wall, launches, _, res = _in_process(
+        train_lm.main, ["--device", "cuda", "--ckpt-dir", str(ckpt)])
+    losses = [s["loss"] for s in res.steps] if res is not None else []
+    if (code != 0 or len(losses) != TRAIN_LM_STEPS or not all(map(math.isfinite, losses))
+            or not losses[-1] < losses[0]):
+        fail(f"train_lm: exit code {code}, {len(losses)} losses {losses[:3]}...{losses[-3:]}; "
+             f"want {TRAIN_LM_STEPS} finite losses, the last below the first: {err[-2000:]}")
+    line["train_lm"] = {"wall_s": wall, "steps": len(losses), "loss_first": losses[0],
+                        "loss_last": losses[-1], "losses_every_20": losses[::20],
+                        "launches": launches}
+    log(f"train_lm on the card: {len(losses)} steps in {wall:.1f} s of host time, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}")
+    return line, {k: v["launches"] for k, v in line["serve_batch"].items()}
+
+
+def run_bench_phase():
+    """Phase 13: (a) the paper's tables and the kernel duets, (b) the
+    scripts' CI lines, (c) the examples.  Returns the ``bench`` JSON line's
+    body, the launches of (a) and those of serve_batch by arch."""
+    import shutil
+    out = ROOT / "build" / "chip_smoke_bench"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    line = {}
+    line["tables"], run_launches = run_bench_tables()
+    line["ci_lines"] = run_bench_ci_lines(out)
+    line["examples"], serve_batch_launches = run_examples(out)
+    line["phase_s"] = time.perf_counter() - t0
+    return line, run_launches, serve_batch_launches
+
+
 def _serve_times(res, prefill_warm_ms, checks):
     cfg = res.lm.cfg
     return {"arch": cfg.name, "layers": cfg.num_layers, "batch": 4, "prompt_len": 1024,
@@ -1925,20 +2240,24 @@ _TIME_KEYS = ("ms", "device_ms", "fma_ms", "plain_ms", "library_ms", "library_de
 
 
 def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches,
-                 obs_launches, max_abs_err, t, family_launches, shapes, train_launches):
+                 obs_launches, max_abs_err, t, family_launches, shapes, train_launches,
+                 bench_launches, serve_batch_launches):
     """One kernel of the serve paths: its tensor-core variant, which the bf16
     main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs.
     ``launches`` counts the serve run, ``duet_launches`` the pipeline run of
     phase 7, ``cli_launches`` the command line's kernel-suite run of phase 8,
     ``obs_launches`` the observed kernel-suite run of phase 10, and
     ``<family>_launches`` phase 11's serve run of that family,
-    ``train_launches`` phase 12's train runs by model; ``shapes`` holds the
-    kernel at phase 11's new shapes."""
+    ``train_launches`` phase 12's train runs by model, ``bench_launches``
+    phase 13's ``benchmarks.run`` and ``serve_batch_launches`` its
+    serve_batch runs by arch; ``shapes`` holds the kernel at phase 11's new
+    shapes."""
     return {"name": name, "route": "cuda", "variant": "tc", "source": source,
             "replaces": replaces, "launches": launches, "duet_launches": duet_launches,
             "cli_launches": cli_launches, "obs_launches": obs_launches,
             **{f"{fam}_launches": n for fam, n in family_launches.items()},
-            "train_launches": train_launches,
+            "train_launches": train_launches, "bench_launches": bench_launches,
+            "serve_batch_launches": serve_batch_launches,
             "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS}, "shapes": shapes}
 
 
@@ -1998,6 +2317,9 @@ def main():
     torch.cuda.empty_cache()
     train_line, train_launches = run_train_phase()
     print(json.dumps({"train": {**train_line, "card": card}}))
+    torch.cuda.empty_cache()
+    bench_line, bench_launches, sb_launches = run_bench_phase()
+    print(json.dumps({"bench": {**bench_line, "card": card}}))
 
     times = {
         "card": card,
@@ -2022,11 +2344,13 @@ def main():
         _kernel_line("K1 flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:32", k1_launches,
                      duet_launches["K1"], cli_launches["K1"], obs_launches["K1"], k1_err, k1,
-                     fam_launches["K1"], shapes["K1"], train_launches["K1"]),
+                     fam_launches["K1"], shapes["K1"], train_launches["K1"],
+                     bench_launches["K1"], {a: n["K1"] for a, n in sb_launches.items()}),
         _kernel_line("K2 ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:31", k2_launches,
                      duet_launches["K2"], cli_launches["K2"], obs_launches["K2"], k2_err, k2,
-                     fam_launches["K2"], shapes["K2"], train_launches["K2"]),
+                     fam_launches["K2"], shapes["K2"], train_launches["K2"],
+                     bench_launches["K2"], {a: n["K2"] for a, n in sb_launches.items()}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

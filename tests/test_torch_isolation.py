@@ -13,7 +13,11 @@ pytest.importorskip("jax")
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
-FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes",
+             "benchmarks", "examples")        # the JAX package's benchmarks/ and examples/
+TWINS = ("engine_bench", "paper_tables", "roofline_table", "run", "chaos_bench",
+         "obs_bench", "service_bench", "replan_bench", "perf_bench")
+EXAMPLES = ("continuous_benchmarking", "quickstart", "serve_batch", "train_lm")
 
 
 def _modules():
@@ -41,14 +45,15 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.train.optimizer", "repro_torch.train.quantized_state",
             "repro_torch.train.data", "repro_torch.train.checkpoint",
             "repro_torch.train.train_step", "repro_torch.launch.train"} <= set(mods)
+    assert {f"repro_torch.benchmarks.{m}" for m in TWINS} <= set(mods)
+    assert {f"repro_torch.examples.{m}" for m in EXAMPLES} <= set(mods)
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
+        f"for name in {FORBIDDEN!r}:\n"
         "    sys.modules[name] = None\n"          # any import of them now raises
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
-        "                                                     'ml_dtypes')\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok', len(" + repr(mods) + "))\n")
@@ -59,9 +64,11 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def _forbidden_imports(path):
-    """(line, module) of every import of jax, jaxlib or repro in ``path``, at
-    any depth (inside functions too), and of every ``import_module`` or
-    ``__import__`` call on a constant naming one of them."""
+    """(line, module) of every import of a ``FORBIDDEN`` package (jax, jaxlib,
+    repro, ml_dtypes, and the JAX package's top-level ``benchmarks`` and
+    ``examples``) in ``path``, at any depth (inside functions too), and of
+    every ``import_module`` or ``__import__`` call on a constant naming one
+    of them."""
     found = []
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         names = []
@@ -99,6 +106,17 @@ def test_the_import_scan_sees_lazy_imports(tmp_path):
                    "        from . import sibling\n")
     assert _forbidden_imports(src) == [(3, "repro.obs"), (4, "jax.numpy"),
                                        (5, "repro.core.stats"), (8, "jaxlib")]
+
+
+def test_the_import_scan_sees_the_jax_benchmarks_and_examples(tmp_path):
+    src = tmp_path / "twin.py"
+    src.write_text("from repro_torch.benchmarks import paper_tables\n"
+                   "def f():\n"
+                   "    import benchmarks.paper_tables as pt\n"
+                   "    from examples import quickstart\n"
+                   "    return importlib.import_module('benchmarks.kernel_bench')\n")
+    assert _forbidden_imports(src) == [(3, "benchmarks.paper_tables"), (4, "examples"),
+                                       (5, "benchmarks.kernel_bench")]
 
 
 def test_kernel_suite_without_device_wants_cuda():
@@ -161,3 +179,65 @@ def test_every_arch_builds_on_cpu(arch):
     assert logits.shape == (1, 1, lm.plan.V)
     assert torch.isfinite(logits[..., :cfg.vocab_size].float()).all()
 
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+
+
+@pytest.mark.parametrize("argv", [[], ["--tables", "kernel_duets"]], ids=["all", "duets"])
+def test_benchmark_run_without_device_flag_wants_cuda(argv, capsys):
+    """The kernel duets want the card: the harness raises before any table
+    runs, instead of printing a -1 row for them."""
+    _no_card()
+    from repro_torch.benchmarks import run
+    with pytest.raises(RuntimeError, match="cuda"):
+        run.main(argv)
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("quickstart", []),
+    ("serve_batch", ["--gen", "2"]),
+    ("train_lm", ["--steps", "1"]),
+])
+def test_model_examples_without_device_flag_want_cuda(name, argv, tmp_path):
+    _no_card()
+    import importlib
+    example = importlib.import_module(f"repro_torch.examples.{name}")
+    if name == "train_lm":
+        argv = argv + ["--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="cuda"):
+        example.main(argv)
+
+
+def _path_defaults(path):
+    """{flag: default} of every ``add_argument`` of a file-path flag in
+    ``path`` (``--out``, ``--ckpt-dir``, ``--incidents-out`` ...)."""
+    out = {}
+    for node in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+                and node.args and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value in ("--out", "--ckpt-dir", "--incidents-out",
+                                           "--history", "--roofline")):
+            default = [k.value for k in node.keywords if k.arg == "default"]
+            out[node.args[0].value] = default[0].value if default else None
+    return out
+
+
+def test_no_twins_default_output_is_a_tracked_file():
+    """The twins write under build/ (ignored by git) unless told otherwise:
+    the BENCH_*.json at the root are the JAX package's committed baselines."""
+    files = [SRC / "repro_torch" / "benchmarks" / f"{m}.py" for m in TWINS] + \
+        [SRC / "repro_torch" / "examples" / f"{m}.py" for m in EXAMPLES]
+    defaults = {f"{f.stem}{flag}": d for f in files for flag, d in _path_defaults(f).items()}
+    assert {"service_bench--out", "replan_bench--out", "perf_bench--out", "train_lm--ckpt-dir",
+            "chaos_bench--out", "obs_bench--out", "engine_bench--out"} <= set(defaults)
+    written = {k: d for k, d in defaults.items() if d is not None and not k.endswith("--roofline")}
+    assert all(d.startswith("build/") for d in written.values()), written
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    if (ROOT / ".git").exists():
+        tracked = subprocess.run(["git", "ls-files", "--", *written.values()], cwd=ROOT,
+                                 capture_output=True, text=True, timeout=60)
+        assert tracked.returncode == 0 and tracked.stdout == ""
