@@ -147,6 +147,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    its plain version on the inputs the model gave its first call;
    ``train_lm`` on the card, its 200 steps' losses finite and the last
    below the first.  The ``bench`` JSON line gives each part's numbers.
+14. cells and the dry run.  (a) ``launch.cells.build_cell`` on a real 1x1
+   mesh on the card, full width, seeded random bf16 weights:
+   internlm2-1.8b at prefill_32k (batch cut from 32 to 1, flash attention:
+   K1 "tc" 24 times at S = 32,768), mamba2-1.3b at prefill_32k (batch 1: K2
+   "tc" 48 times), internlm2-1.8b at decode_32k (int8 cache, batch cut from
+   128 to 32: ~53 GB of cache) and mamba2-1.3b at decode_32k (batch 128).
+   Each cell runs once with the launch counts set to 0 just before and read
+   just after, its logits finite; then its warm time (median of 3, CUDA
+   events), the per-device account of the same call (``analysis.account``),
+   whose FLOPs must equal those of the meta dry run of the same 1x1 cell,
+   and the roofline terms with the card's own constants
+   (``analysis.roofline``): ``roofline_fraction`` (model FLOPs over the
+   bound's time at peak, JAX's definition) and ``achieved_fraction`` (over
+   the warm time).  Before the cells, K1 and K2 at the prefill cells'
+   shapes against their plain versions (bf16 tolerances, row by row as in
+   11 (e); the plain K1 a block of 2,048 query rows at a time), timed
+   beside their bounds and, for K1, SDPA.  (b) ``python -m
+   repro_torch.launch.dryrun`` on the host (meta DTensors over a fake
+   process group, no card), one process per cell, all six started before
+   phase 12 and collected here: internlm2-1.8b and
+   phi3.5-moe-42b-a6.6b at train_4k and decode_32k on 16x16, internlm2-1.8b
+   train_4k on 2x16x16 and mamba2-1.3b prefill_32k on 16x16; each record
+   ok with FLOPs > 0, an all-reduce among the train cells' collectives and
+   the plan fields of JAX's ``make_plan``.  The ``cells`` and ``dryrun``
+   JSON lines give each cell's numbers; records and logs are in
+   ``build/chip_smoke_dryrun/``.
 
 The last line of standard output is the device line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of jax or
@@ -710,14 +736,12 @@ def _device_ms(fn, reps=7, per_rep=10, warmup=3):
 
 
 def _k1_work(q, k, causal):
-    """(flops, bytes) of one K1 call: q.k and p.v over the (q, k) pairs the
-    mask keeps (the causal half where Sq == Skv), 2 flops per MAC; q, k, v
-    read and the output written once."""
-    B, H, Sq, hd = q.shape
-    Skv = k.shape[2]
-    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return 4 * hd * pairs * B * H, nbytes
+    """(flops, bytes) of one K1 call: ``flash_attention.work`` (q.k and p.v
+    over the (q, k) pairs the mask keeps, 2 flops per MAC; q, k, v read and
+    the output written once), what ``analysis.account`` counts for it."""
+    from repro_torch.kernels.flash_attention import work
+    return work(tuple(q.shape), (k.shape[1], k.shape[2]), causal=causal,
+                itemsize=q.element_size())
 
 
 def _bound(flops, nbytes, dtype="bfloat16"):
@@ -727,9 +751,11 @@ def _bound(flops, nbytes, dtype="bfloat16"):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_k1_at(B, Sq, Skv, H, K, hd, causal=True, seed=99, fma=True):
+def time_k1_at(B, Sq, Skv, H, K, hd, causal=True, seed=99, fma=True, plain=None):
     """K1 (tc) on bf16 inputs at one shape: its times, its CUDA-core variant
-    on the same inputs (``fma``), the plain version, SDPA and the bound."""
+    on the same inputs (``fma``), the plain version (``plain``, default the
+    module's; its time is the median of 3 calls when given), SDPA and the
+    bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_launch, flash_attention_hmajor,
@@ -740,7 +766,9 @@ def time_k1_at(B, Sq, Skv, H, K, hd, causal=True, seed=99, fma=True):
     kernel_ms, device_ms = _time_ms(kernel), _device_ms(kernel)
     fma_ms = _time_ms(lambda: _launch(q, k, v, "fma", causal=causal, window=0, kv_valid=None,
                                       softmax_scale=None)) if fma else None
-    plain_ms = _time_ms(lambda: flash_attention_hmajor_plain(q, k, v, causal=causal))
+    plain_ms = (_time_ms(lambda: flash_attention_hmajor_plain(q, k, v, causal=causal))
+                if plain is None else _time_ms(lambda: plain(q, k, v, causal=causal), n=3,
+                                               warmup=1))
     library_ms, library_device_ms = _time_ms(library), _device_ms(library)
     flops, nbytes = _k1_work(q, k, causal)
     bound_ms, bound_by = _bound(flops, nbytes)
@@ -754,21 +782,13 @@ def time_k1():
     return time_k1_at(s["B"], s["Sq"], s["Skv"], s["H"], s["K"], s["hd"])
 
 
-def _k2_work(x, dt, A, Bi, state_bytes, Q=256):
-    """(flops, bytes) of one K2 call: bytes read and written once; operations
-    of the chunk-``Q`` block decomposition (C B^T once per group and chunk,
-    the causal half of att @ x, C @ state^T and the state update)."""
-    B, H, S, P = x.shape
-    G, N = Bi.shape[1], Bi.shape[3]
-    nc = -(-S // Q)
-    flops = (2 * Q * Q * N * B * G * nc                    # C B^T
-             + 2 * (Q * (Q + 1) // 2) * P * B * H * nc     # att @ x, causal half
-             + 2 * Q * N * P * B * H * nc                  # C @ state^T
-             + 2 * P * N * Q * B * H * nc)                 # state update
-    nbytes = (x.numel() * x.element_size() * 2             # x in, y out
-              + dt.numel() * dt.element_size() + A.numel() * A.element_size()
-              + 2 * Bi.numel() * Bi.element_size() + state_bytes)
-    return flops, nbytes
+def _k2_work(x, dt, Bi):
+    """(flops, bytes) of one K2 call: ``ssd_scan.work`` (bytes read and
+    written once, the fp32 state included; operations of the chunk-256
+    block decomposition), what ``analysis.account`` counts for it."""
+    from repro_torch.kernels.ssd_scan import work
+    return work(tuple(x.shape), Bi.shape[1], Bi.shape[3], x_itemsize=x.element_size(),
+                dt_itemsize=dt.element_size())
 
 
 def time_k2_at(B, S, H, G, P, N, seed=98, variants=True):
@@ -787,7 +807,7 @@ def time_k2_at(B, S, H, G, P, N, seed=98, variants=True):
         out["bf16_operands_ms"] = _time_ms(bf16_ops)
         out["bf16_operands_device_ms"] = _device_ms(bf16_ops)
     out["plain_ms"] = _time_ms(lambda: ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=256))
-    flops, nbytes = _k2_work(x, dt, A, Bi, B * H * P * N * 4)      # final state, f32
+    flops, nbytes = _k2_work(x, dt, Bi)
     bound_ms, bound_by = _bound(flops, nbytes)
     return dict(out, library_ms=None, library_device_ms=None, bound_ms=bound_ms,
                 bound_by=bound_by, flops=flops, bytes=nbytes)
@@ -2241,7 +2261,7 @@ _TIME_KEYS = ("ms", "device_ms", "fma_ms", "plain_ms", "library_ms", "library_de
 
 def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches,
                  obs_launches, max_abs_err, t, family_launches, shapes, train_launches,
-                 bench_launches, serve_batch_launches):
+                 bench_launches, serve_batch_launches, cell_launches):
     """One kernel of the serve paths: its tensor-core variant, which the bf16
     main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs.
     ``launches`` counts the serve run, ``duet_launches`` the pipeline run of
@@ -2250,15 +2270,270 @@ def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches,
     ``<family>_launches`` phase 11's serve run of that family,
     ``train_launches`` phase 12's train runs by model, ``bench_launches``
     phase 13's ``benchmarks.run`` and ``serve_batch_launches`` its
-    serve_batch runs by arch; ``shapes`` holds the kernel at phase 11's new
-    shapes."""
+    serve_batch runs by arch, ``cell_launches`` phase 14's cell runs; ``shapes``
+    holds the kernel at phase 11's new shapes and phase 14's cell shapes."""
     return {"name": name, "route": "cuda", "variant": "tc", "source": source,
             "replaces": replaces, "launches": launches, "duet_launches": duet_launches,
             "cli_launches": cli_launches, "obs_launches": obs_launches,
             **{f"{fam}_launches": n for fam, n in family_launches.items()},
             "train_launches": train_launches, "bench_launches": bench_launches,
-            "serve_batch_launches": serve_batch_launches,
+            "serve_batch_launches": serve_batch_launches, "cell_launches": cell_launches,
             "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS}, "shapes": shapes}
+
+
+# ------------------------------------------- phase 14: cells and the dry run
+# (a) cells built by ``launch.cells.build_cell`` on a real 1x1 mesh on the
+# card, full width, seeded random bf16 weights: (arch, shape, global batch
+# or None for the shape's own, config overrides, launches of one run)
+CELL_RUNS = [
+    ("internlm2-1.8b", "prefill_32k", 1, {"attention_impl": "flash"}, {"K1": 24, "K2": 0}),
+    ("mamba2-1.3b", "prefill_32k", 1, None, {"K1": 0, "K2": 48}),
+    ("internlm2-1.8b", "decode_32k", 32, None, {"K1": 0, "K2": 0}),
+    ("mamba2-1.3b", "decode_32k", None, None, {"K1": 0, "K2": 0}),
+]
+# K1 and K2 at the prefill_32k cells' shapes (batch 1)
+CELL_SHAPES = [
+    ("K1 internlm2 prefill_32k", "K1",
+     dict(B=1, Sq=32768, Skv=32768, H=16, K=8, hd=128, causal=True), ("bfloat16",), "drawn"),
+    ("K2 mamba2 prefill_32k", "K2", dict(B=1, S=32768, H=64, G=1, P=64, N=128),
+     ("bfloat16",), "drawn"),
+]
+# (b) the host-only dry run, `python -m repro_torch.launch.dryrun` per cell
+# (arch, shape, multi-pod), each in a process of its own, and the plan fields
+# that JAX's make_plan gives on its mesh (tests/test_torch_sharding_plan.py
+# holds the port's plan to JAX's for every arch and mesh)
+DRYRUN_CELLS = [("internlm2-1.8b", "train_4k", False), ("internlm2-1.8b", "decode_32k", False),
+                ("phi3.5-moe-42b-a6.6b", "train_4k", False),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k", False),
+                ("internlm2-1.8b", "train_4k", True), ("mamba2-1.3b", "prefill_32k", False)]
+DRYRUN_PLANS = {
+    "internlm2-1.8b": dict(H=16, K=8, V=94208, kv_sharded=False, head_pad_overhead=0.0),
+    "phi3.5-moe-42b-a6.6b": dict(H=32, K=8, V=32768, kv_sharded=False, head_pad_overhead=0.0),
+    "mamba2-1.3b": dict(H=0, K=0, V=51200, kv_sharded=False, head_pad_overhead=0.0),
+}
+
+
+def start_dryrun():
+    """Phase 14 (b), started before phase 12: one dry-run process per cell,
+    all at once (host CPU only: meta tensors, a fake process group; phase
+    12 keeps the card busy and one host core)."""
+    import os
+    import shutil
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for i, (arch, shape, multi_pod) in enumerate(DRYRUN_CELLS):
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                "--shape", shape, "--out", str(out / f"{i}.jsonl")] + (
+                    ["--multi-pod"] if multi_pod else [])
+        with open(out / f"{i}.log", "w") as log_file:
+            procs.append(subprocess.Popen(argv, env=env, cwd=str(ROOT), stdout=log_file,
+                                          stderr=subprocess.STDOUT))
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def finish_dryrun(state):
+    """Phase 14 (b): every cell's record must be ok with FLOPs > 0, the
+    data-parallel train cells must all-reduce, and the plan fields must be
+    JAX's.  Returns the ``dryrun`` line's body."""
+    for proc in state["procs"]:
+        proc.wait()
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    cells = []
+    for i, (arch, shape, multi_pod) in enumerate(DRYRUN_CELLS):
+        path = out / f"{i}.jsonl"
+        if not path.is_file():
+            fail(f"dry run {arch} x {shape}: no record; log: "
+                 f"{(out / f'{i}.log').read_text()[-2000:]}")
+        rec = json.loads(path.read_text().splitlines()[-1])
+        if rec["status"] != "ok":
+            fail(f"dry run {arch} x {shape} multi_pod={multi_pod}: {rec.get('error')}\n"
+                 f"{rec.get('traceback', '')}")
+        t = rec["roofline"]
+        if not t["hlo_flops"] > 0:
+            fail(f"dry run {arch} x {shape}: FLOPs {t['hlo_flops']}")
+        if shape == "train_4k" and "all-reduce" not in t["collective_detail"]:
+            fail(f"dry run {arch} x {shape}: collectives {sorted(t['collective_detail'])}, "
+                 "want an all-reduce (data-parallel gradients)")
+        if rec["plan"] != DRYRUN_PLANS[arch]:
+            fail(f"dry run {arch}: plan {rec['plan']}, want JAX's {DRYRUN_PLANS[arch]}")
+        cells.append({"arch": arch, "shape": shape, "mesh": rec["mesh"],
+                      "trace_s": rec["trace_s"], "accum_steps": rec["accum_steps"],
+                      "flops_per_device": t["hlo_flops"], "hbm_bytes": t["hbm_bytes"],
+                      "collective_bytes": t["collective_detail"], "dominant": t["dominant"],
+                      "compute_s": t["compute_s"], "memory_s": t["memory_s"],
+                      "collective_s": t["collective_s"],
+                      "roofline_fraction": t["roofline_fraction"],
+                      "peak_estimate_bytes": rec["memory_analysis"]["peak_estimate_bytes"],
+                      "traffic_by_tag": rec["traffic_by_tag"], "device": rec["device"]})
+        log(f"dry run {arch} x {shape} x {rec['mesh']}: ok, trace {rec['trace_s']} s, "
+            f"{t['hlo_flops']:.4g} FLOPs/device, dominant {t['dominant']}")
+    return {"cells": cells, "phase_s": time.perf_counter() - state["t0"]}
+
+
+def _k1_plain_rows(q, k, v, causal=True, block=2048):
+    """K1's plain version (``attention_ref``'s arithmetic: GQA by repeat,
+    f32 scores, mask, softmax, f32 p.v) a block of query rows at a time, so
+    that S = 32,768 needs no [S, S] score matrix."""
+    import torch
+    B, H, Sq, hd = q.shape
+    g = H // k.shape[1]
+    kf = torch.repeat_interleave(k, g, dim=1).float()
+    vf = torch.repeat_interleave(v, g, dim=1).float()
+    out = torch.empty_like(q)
+    k_pos = torch.arange(k.shape[2], device=q.device)[None, :]
+    for r0 in range(0, Sq, block):
+        r1 = min(r0 + block, Sq)
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(), kf) * hd ** -0.5
+        if causal:
+            q_pos = torch.arange(r0, r1, device=q.device)[:, None]
+            s = torch.where(k_pos <= q_pos, s, -1e30)
+        out[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                                        vf).to(q.dtype)
+    return out
+
+
+def check_cell_shapes():
+    """Phase 14 (a), kernels: K1 and K2 at the prefill_32k cells' shapes
+    against their plain versions (bf16 tolerances, each output row also
+    within the tolerance of its norm, as phase 11 (e)), then timed (the
+    plain K1 a block of rows at a time, ``_k1_plain_rows``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_hmajor
+    from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
+    out = []
+    for i, (label, kernel, shape, _, _) in enumerate(CELL_SHAPES):
+        tol = KERNEL_TOL[(kernel, "bfloat16")]
+        if kernel == "K1":
+            q, k, v = _qkv(shape["B"], shape["Sq"], shape["Skv"], shape["H"], shape["K"],
+                           shape["hd"], torch.bfloat16, seed=400 + i)
+            pairs = [(flash_attention_hmajor(q, k, v, causal=True),
+                      _k1_plain_rows(q, k, v, causal=True))]
+            del q, k, v
+        else:
+            x, dt_, A, Bi, Ci = _ssd_inputs(shape["B"], shape["S"], shape["H"], shape["G"],
+                                            shape["P"], shape["N"], torch.bfloat16,
+                                            seed=400 + i, serve=True)
+            pairs = list(zip(ssd_scan_hmajor(x, dt_, A, Bi, Ci),
+                             ssd_scan_hmajor_plain(x, dt_, A, Bi, Ci, chunk=256)))
+            del x, dt_, A, Bi, Ci
+        torch.cuda.synchronize()
+        err = share = row = 0.0
+        for a, b in pairs:
+            e, sh, bad = _agreement(a.float(), b.float(), tol)
+            if bad or not torch.isfinite(a.float()).all():
+                fail(f"{label}: {bad} entries out of atol=rtol={tol}")
+            err, share = max(err, e), max(share, sh)
+            row = max(row, _row_share(a.float(), b.float(), tol))
+        if not row <= 1.0:
+            fail(f"{label}: a row's error is {row:.3f} x {tol} of its norm")
+        del pairs
+        torch.cuda.empty_cache()
+        if kernel == "K1":
+            t = time_k1_at(shape["B"], shape["Sq"], shape["Skv"], shape["H"], shape["K"],
+                           shape["hd"], causal=True, seed=410 + i, fma=False,
+                           plain=_k1_plain_rows)
+        else:
+            t = time_k2_at(shape["B"], shape["S"], shape["H"], shape["G"], shape["P"],
+                           shape["N"], seed=410 + i, variants=False)
+        entry = {"name": label, "shape": shape, "max_abs_err": err, "tolerance": tol,
+                 "tolerance_share": share, "row_tolerance_share": row,
+                 **{k: t[k] for k in _TIME_KEYS + ("flops", "bytes") if k in t}}
+        torch.cuda.empty_cache()
+        log(f"{label}: {json.dumps(entry)}")
+        out.append(entry)
+    return out
+
+
+def _cell_ms(cell, n=3):
+    """Warm time of one run of ``cell``: the median of ``n`` runs, each
+    between two CUDA events."""
+    import torch
+    times = []
+    for _ in range(n):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        cell.run()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def run_cell_on_card(arch, shape, batch, overrides, want, card):
+    """Phase 14 (a), one cell: built on a 1x1 mesh on the card, run once with
+    the launch counts set to 0 just before and read just after (held to
+    ``want``), logits finite, the warm time, the account of the same call
+    against the meta dry run of the same 1x1 cell (equal FLOPs), and the
+    roofline terms with the card's own constants."""
+    import torch
+    from repro_torch.analysis.account import account
+    from repro_torch.analysis.roofline import build_terms
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_mesh
+    kw = dict(global_batch=batch, overrides=overrides)
+    t0 = time.perf_counter()
+    cell = build_cell(arch, shape, make_mesh((1, 1), ("data", "model"), "cuda"),
+                      device="cuda", seed=0, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _reset_launches()
+    out = cell.run()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    by_variant = {k: dict(w.launches_by_variant) for k, w in wrappers.items()}
+    if launches != want or any(by_variant[k]["fma"] for k in by_variant):
+        fail(f"cell {arch} x {shape}: launches {by_variant}, want {want} (tc)")
+    logits = out["logits"] if cell.kind == "prefill" else out[0]
+    B = cell.shape.global_batch
+    if tuple(logits.shape[:2]) != (B, 1) or not torch.isfinite(logits.float()).all():
+        fail(f"cell {arch} x {shape}: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits.float()).all())}")
+    del out, logits
+    warm_ms = _cell_ms(cell)
+    peak = torch.cuda.max_memory_allocated()
+    _, acct = account(cell.run)
+    torch.cuda.synchronize()
+    meta = build_cell(arch, shape, make_mesh((1, 1), ("data", "model"), "meta"),
+                      device="meta", **kw)
+    _, meta_acct = account(meta.run)
+    if acct.flops != meta_acct.flops or acct.flops <= 0:
+        fail(f"cell {arch} x {shape}: the card's account counts {acct.flops} FLOPs, the "
+             f"meta dry run of the same 1x1 cell {meta_acct.flops}")
+    terms = build_terms(arch, cell.lm.cfg, cell.shape, "1x1", 1, acct, peak,
+                        device=torch.cuda.get_device_name(0))
+    entry = {"arch": arch, "shape": shape, "batch": B, "seq": cell.shape.seq_len,
+             "kv_cache_dtype": cell.shape.kv_cache_dtype, "overrides": overrides,
+             "launches": launches, "build_s": build_s, "warm_ms": warm_ms,
+             "peak_gb": peak / 1e9, "flops": acct.flops, "meta_flops": meta_acct.flops,
+             "traffic_bytes": acct.traffic_bytes, "traffic_by_tag": acct.traffic_by_tag,
+             "kernel_calls": acct.kernel_calls, "compute_s": terms.compute_s,
+             "memory_s": terms.memory_s, "step_time_s": terms.step_time_s,
+             "dominant": terms.dominant, "model_flops": terms.model_flops_total,
+             "useful_flops_fraction": terms.useful_flops_fraction,
+             "roofline_fraction": terms.roofline_fraction,
+             "achieved_fraction": terms.fraction_at(warm_ms / 1e3),
+             "bound_share": terms.step_time_s / (warm_ms / 1e3), "card": card}
+    log(f"cell {arch} x {shape} (batch {B}) on {card}: {warm_ms:.1f} ms warm, "
+        f"{acct.flops:.4g} FLOPs (meta {meta_acct.flops:.4g}), bound "
+        f"{terms.step_time_s * 1e3:.2f} ms ({terms.dominant}), roofline_fraction "
+        f"{terms.roofline_fraction:.4f}, achieved {entry['achieved_fraction']:.4f}")
+    del cell, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
+
+
+def run_cells_phase(card):
+    """Phase 14 (a): the kernels at the cells' shapes, then each cell."""
+    t0 = time.perf_counter()
+    shapes = check_cell_shapes()
+    cells = [run_cell_on_card(*c, card=card) for c in CELL_RUNS]
+    return {"cells": cells, "shapes": shapes, "card": card,
+            "phase_s": time.perf_counter() - t0}
 
 
 def main():
@@ -2315,11 +2590,20 @@ def main():
     print(json.dumps({"families": {**families, "card": card,
                                    "phase_s": time.perf_counter() - t_fam}}))
     torch.cuda.empty_cache()
+    dryrun = start_dryrun()          # phase 14 (b) on the host, beside phase 12
     train_line, train_launches = run_train_phase()
     print(json.dumps({"train": {**train_line, "card": card}}))
     torch.cuda.empty_cache()
     bench_line, bench_launches, sb_launches = run_bench_phase()
     print(json.dumps({"bench": {**bench_line, "card": card}}))
+    torch.cuda.empty_cache()
+    cells_line = run_cells_phase(card)
+    print(json.dumps({"cells": cells_line}))
+    print(json.dumps({"dryrun": finish_dryrun(dryrun)}))
+    cell_launches = {k: {f"{c['arch']}|{c['shape']}": c["launches"][k]
+                         for c in cells_line["cells"]} for k in ("K1", "K2")}
+    cell_shapes = {k: [e for e in cells_line["shapes"] if e["name"].startswith(k)]
+                   for k in ("K1", "K2")}
 
     times = {
         "card": card,
@@ -2339,18 +2623,21 @@ def main():
     print(json.dumps({"times": times}))
     fam_launches = {k: {name: f["launches"][k] for name, f in families.items()}
                     for k in ("K1", "K2")}
-    shapes = {k: [e for e in new_shapes if e["name"].startswith(k)] for k in ("K1", "K2")}
+    shapes = {k: [e for e in new_shapes if e["name"].startswith(k)] + cell_shapes[k]
+              for k in ("K1", "K2")}
     print(json.dumps({"kernels": [
         _kernel_line("K1 flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:32", k1_launches,
                      duet_launches["K1"], cli_launches["K1"], obs_launches["K1"], k1_err, k1,
                      fam_launches["K1"], shapes["K1"], train_launches["K1"],
-                     bench_launches["K1"], {a: n["K1"] for a, n in sb_launches.items()}),
+                     bench_launches["K1"], {a: n["K1"] for a, n in sb_launches.items()},
+                     cell_launches["K1"]),
         _kernel_line("K2 ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:31", k2_launches,
                      duet_launches["K2"], cli_launches["K2"], obs_launches["K2"], k2_err, k2,
                      fam_launches["K2"], shapes["K2"], train_launches["K2"],
-                     bench_launches["K2"], {a: n["K2"] for a, n in sb_launches.items()}),
+                     bench_launches["K2"], {a: n["K2"] for a, n in sb_launches.items()},
+                     cell_launches["K2"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

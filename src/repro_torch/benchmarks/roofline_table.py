@@ -1,14 +1,17 @@
 """Roofline summary table over the dry-run JSONL (§Roofline deliverable).
 
 The port's twin of the JAX package's ``benchmarks/roofline_table.py``.  It
-reads a dry-run JSONL in the JAX package's format (one record per arch,
-shape and mesh with its roofline terms); the port has no dry run of its
-own yet.
+reads a dry-run JSONL (one record per arch, shape and mesh with its
+roofline terms): by default the port's own, as
+``python -m repro_torch.launch.dryrun --both-meshes --out results/dryrun_torch.jsonl``
+writes it; a JAX dry run's JSONL has the same keys and reads alike.
 """
 from __future__ import annotations
 
 import json
 import time
+
+DEFAULT_PATH = "results/dryrun_torch.jsonl"
 
 
 def load_records(path: str):
@@ -30,7 +33,7 @@ def load_records(path: str):
     return list(dedup.values())
 
 
-def table_roofline(path: str = "results/dryrun.jsonl"):
+def table_roofline(path: str = DEFAULT_PATH):
     t0 = time.perf_counter()
     recs = [r for r in load_records(path) if not r.get("overrides")]
     rows = {}

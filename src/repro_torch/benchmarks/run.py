@@ -32,12 +32,11 @@ import json
 import sys
 
 
-# the roofline row when --roofline names no file: the port has no dry run
-# of its own yet, so the summary reads one that the JAX package wrote
-NO_DRYRUN = ("no dry-run results yet; the port has no dry run of its own: "
-             "pass a JSONL written by the JAX package's dry run "
-             "(python -m repro.launch.dryrun --both-meshes --out FILE) "
-             "with --roofline FILE")
+# the roofline row when --roofline names no file
+NO_DRYRUN = ("no dry-run results yet: pass a JSONL written by the port's dry run "
+             "(python -m repro_torch.launch.dryrun --both-meshes --out FILE) or by "
+             "the JAX package's dry run (python -m repro.launch.dryrun, the same "
+             "keys) with --roofline FILE")
 
 
 def _write_obs(args, obs):
@@ -74,9 +73,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="device of the real-timing kernel duets (cuda, or "
                          "cpu)")
-    ap.add_argument("--roofline", default="results/dryrun.jsonl",
-                    help="dry-run JSONL to summarize (if present), in the "
-                         "JAX package's format")
+    ap.add_argument("--roofline", default="results/dryrun_torch.jsonl",
+                    help="dry-run JSONL to summarize (if present): the port's "
+                         "(python -m repro_torch.launch.dryrun), or the JAX "
+                         "package's, which has the same keys")
     ap.add_argument("--seed", type=int, default=0,
                     help="base seed offsetting every table's experiment "
                          "seeds (0 replays the historical tables)")

@@ -9,7 +9,13 @@ dim that is a multiple of 16 runs on the tensor cores ("tc"), every other
 call on CUDA cores in fp32 ("fma"); ``k1_variant`` chooses.
 
 ``flash_attention_hmajor`` launches the kernel for CUDA tensors and runs
-the plain version only for tensors on the CPU.  K1 has no backward, as the
+the plain version only for tensors on the CPU.  Every other tensor (on the
+meta device, a fake tensor, a DTensor) goes through the custom op
+``repro_torch::flash_attention_hmajor``: its fake function gives an empty
+output of q's shape and type and computes nothing.  (On a mesh the model
+calls it on each shard's local tensors, models/attention.py.)  Its
+operations and bytes (``work``) are what ``analysis.account`` counts for a
+call.  K1 has no backward, as the
 JAX package's Pallas kernel has none (``jax.grad`` through it fails), so a
 call under autograd raises, on the CPU too: training takes the "dot",
 "chunked" or "auto" attention paths, as the JAX package's does.
@@ -17,6 +23,7 @@ call under autograd raises, on the CPU too: training takes the "dot",
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -87,12 +94,50 @@ def flash_attention_hmajor(q, k, v, *, causal=True, window=0, kv_valid=None,
     """
     _check(q, k, v)
     _refuse_autograd(q, k, v)
-    if q.device.type == "cpu":
+    if type(q) is torch.Tensor and q.device.type == "cpu":
         return flash_attention_hmajor_plain(q, k, v, causal=causal, window=window,
                                             kv_valid=kv_valid,
                                             softmax_scale=softmax_scale)
+    window = int(window) if window and window > 0 else 0
+    return torch.ops.repro_torch.flash_attention_hmajor(
+        q, k, v, bool(causal), window, None if kv_valid is None else int(kv_valid),
+        None if softmax_scale is None else float(softmax_scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_hmajor", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+              kv_valid: Optional[int], softmax_scale: Optional[float]) -> torch.Tensor:
+    """K1 as an op: a CUDA tensor launches the kernel, a CPU tensor (a
+    DTensor's shard on a CPU mesh) runs the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_hmajor_plain(q, k, v, causal=causal, window=window,
+                                            kv_valid=kv_valid, softmax_scale=softmax_scale)
     return _launch(q, k, v, k1_variant(q.dtype, q.shape[3]), causal=causal, window=window,
                    kv_valid=kv_valid, softmax_scale=softmax_scale)
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, kv_valid, softmax_scale):
+    return torch.empty_like(q)
+
+
+def work(q_shape, kv_len, causal=True, window=0, itemsize=2):
+    """(flops, bytes) of one K1 call on q [B,H,Sq,hd] over ``kv_len`` keys
+    and values of K heads (``kv_len`` = (K, Skv)): q.k and p.v over the
+    (q, k) pairs the mask keeps (the causal half where Sq == Skv, fewer
+    under a sliding window), 2 flops per MAC; q, k, v read and the output
+    written once."""
+    B, H, Sq, hd = q_shape
+    K, Skv = kv_len
+    if causal and window and window > 0:
+        w = min(window, Sq)
+        pairs = w * (w + 1) // 2 + (Sq - w) * w
+    elif causal:
+        pairs = Sq * (Sq + 1) // 2
+    else:
+        pairs = Sq * Skv
+    nbytes = itemsize * (2 * B * H * Sq * hd + 2 * B * K * Skv * hd)
+    return 4 * hd * pairs * B * H, nbytes
 
 
 def _launch(q, k, v, variant, *, causal, window, kv_valid, softmax_scale):

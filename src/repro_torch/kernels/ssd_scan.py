@@ -10,7 +10,12 @@ variants: bf16 x, B and C run on the tensor cores ("tc"), f32 on CUDA cores
 in fp32 ("fma"); ``k2_variant`` chooses.
 
 ``ssd_scan_hmajor`` launches the kernel for CUDA tensors and runs the plain
-version only for tensors on the CPU.
+version only for tensors on the CPU.  Every other tensor (on the meta
+device, a fake tensor, a DTensor) goes through the custom op
+``repro_torch::ssd_scan_hmajor``: its fake function gives empty outputs of
+the right shapes and types and computes nothing.  (On a mesh the model
+calls it on each shard's local tensors, models/ssm.py.)  Its operations
+and bytes (``work``) are what ``analysis.account`` counts for a call.
 
 Under autograd (grad enabled and an input that requires grad), a CUDA call
 goes through ``SSDScanFn``: K2 computes the forward, and the backward
@@ -24,6 +29,7 @@ inputs that require grad, since its outputs would carry no gradient.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -155,12 +161,47 @@ def ssd_scan_hmajor(x, dt, A, B_in, C_in, *, chunk=DEFAULT_CHUNK, h0=None):
     through ``SSDScanFn``, whose backward takes chunks of ``chunk`` rows.
     """
     _check(x, dt, A, B_in, C_in, h0)
-    if x.device.type == "cpu":
+    if type(x) is torch.Tensor and x.device.type == "cpu":
         return ssd_scan_hmajor_plain(x, dt, A, B_in, C_in, chunk=chunk, h0=h0)
     if _wants_grad(x, dt, A, B_in, C_in, h0):
         return SSDScanFn.apply(x, dt, A, B_in, C_in, h0, chunk)
+    return torch.ops.repro_torch.ssd_scan_hmajor(x, dt, A, B_in, C_in, h0, chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_hmajor", mutates_args=())
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_in: torch.Tensor,
+            C_in: torch.Tensor, h0: Optional[torch.Tensor],
+            chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 as an op: a CUDA tensor launches ``k2_variant``'s kernel with y in
+    x's type, a CPU tensor (a DTensor's shard on a CPU mesh) runs the plain
+    version."""
+    if x.device.type == "cpu":
+        return ssd_scan_hmajor_plain(x, dt, A, B_in, C_in, chunk=chunk, h0=h0)
     return _launch(x, dt, A, B_in, C_in, h0, k2_variant(x.dtype, x.shape[3], B_in.shape[3]),
                    x.dtype)
+
+
+@_ssd_op.register_fake
+def _ssd_fake(x, dt, A, B_in, C_in, h0, chunk):
+    Bz, H, _, P = x.shape
+    return torch.empty_like(x), x.new_empty((Bz, H, P, B_in.shape[3]), dtype=torch.float32)
+
+
+def work(x_shape, G, N, x_itemsize=2, dt_itemsize=4, Q=256):
+    """(flops, bytes) of one K2 call on x [B,H,S,P] with G groups of d_state
+    N: bytes read and written once (x in, y out, dt, A, B and C in, the
+    fp32 state out); operations of the chunk-``Q`` block decomposition (C B^T
+    once per group and chunk, the causal half of att @ x, C @ state^T and
+    the state update)."""
+    B, H, S, P = x_shape
+    nc = -(-S // Q)
+    flops = (2 * Q * Q * N * B * G * nc                    # C B^T
+             + 2 * (Q * (Q + 1) // 2) * P * B * H * nc     # att @ x, causal half
+             + 2 * Q * N * P * B * H * nc                  # C @ state^T
+             + 2 * P * N * Q * B * H * nc)                 # state update
+    nbytes = (B * H * S * P * x_itemsize * 2 + B * H * S * dt_itemsize + H * 4
+              + 2 * B * G * S * N * x_itemsize + B * H * P * N * 4)
+    return flops, nbytes
 
 
 def _wants_grad(*tensors):
@@ -168,15 +209,14 @@ def _wants_grad(*tensors):
 
 
 class SSDScanFn(torch.autograd.Function):
-    """K2 under autograd: the kernel's forward (``k2_variant``'s choice, y in
-    x's type), and a backward that reruns the plain chunked scan with chunks
+    """K2 under autograd: the op's forward (on the card the kernel,
+    ``k2_variant``'s choice, y in x's type), and a backward that reruns the plain chunked scan with chunks
     of ``chunk`` rows on detached copies of the saved inputs and returns its
     autograd gradient (a state gradient that is None counts as zero)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B_in, C_in, h0, chunk):
-        y, state = _launch(x, dt, A, B_in, C_in, h0,
-                           k2_variant(x.dtype, x.shape[3], B_in.shape[3]), x.dtype)
+        y, state = torch.ops.repro_torch.ssd_scan_hmajor(x, dt, A, B_in, C_in, h0, chunk)
         ctx.save_for_backward(x, dt, A, B_in, C_in, h0)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)

@@ -12,11 +12,17 @@ Shapes: q [B, Sq, H, hd]; k, v [B, Skv, K, hd]; H % K == 0 (GQA groups).
 ``window`` may be an int or a 0-d tensor: window <= 0 means global.  KV may
 be int8 with per-(b,s,k) scales (quantized decode cache).  Score products
 run in float32, as the JAX package's ``preferred_element_type`` asks.
+The dot and chunked paths run inside the "attention_core" scope
+(``analysis.account.named_scope``), as JAX's run in its named scope: the
+account sums their traffic by that tag.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.analysis.account import named_scope
+from repro_torch.models.layers import contiguous_stride
 
 NEG_INF = -1e30
 
@@ -50,9 +56,14 @@ def _gqa_scores(q, k):
     return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
 
 
-def attention_dot(q, k, v, *, causal=True, window=None, q_offset=0,
-                  kv_valid_len=None, k_scale=None, v_scale=None,
-                  softmax_scale=None):
+def attention_dot(q, k, v, **kw):
+    with named_scope("attention_core"):
+        return _attention_dot(q, k, v, **kw)
+
+
+def _attention_dot(q, k, v, *, causal=True, window=None, q_offset=0,
+                   kv_valid_len=None, k_scale=None, v_scale=None,
+                   softmax_scale=None):
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -70,9 +81,14 @@ def attention_dot(q, k, v, *, causal=True, window=None, q_offset=0,
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,
-                      kv_valid_len=None, k_scale=None, v_scale=None,
-                      chunk=1024, softmax_scale=None):
+def attention_chunked(q, k, v, **kw):
+    with named_scope("attention_core"):
+        return _attention_chunked(q, k, v, **kw)
+
+
+def _attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,
+                       kv_valid_len=None, k_scale=None, v_scale=None,
+                       chunk=1024, softmax_scale=None):
     """Online-softmax over KV chunks; peak memory O(Sq * chunk)."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -117,9 +133,36 @@ def attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _shardwise(q, k, v, k_scale, v_scale) -> bool:
+    """Can a call on DTensors run shard by shard?  Yes when q, k and v are
+    DTensors cut alike on batch (dim 0) and heads (dim 2) only (each shard's
+    q heads meet their own kv heads), and the scales, if any, likewise."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(q, DTensor):
+        return False
+    pl = q.placements
+    if not all(p.is_replicate() or (p.is_shard() and p.dim in (0, 2)) for p in pl):
+        return False
+    return all(isinstance(t, DTensor) and t.placements == pl
+               for t in (k, v) + tuple(t for t in (k_scale, v_scale) if t is not None))
+
+
 def attention(q, k, v, *, impl="auto", causal=True, window=None, q_offset=0,
               kv_valid_len=None, k_scale=None, v_scale=None, chunk=1024,
               softmax_scale=None):
+    """Attention by ``impl``.  On DTensors cut alike on batch and heads it
+    runs on each shard's local tensors, as under JAX's shard_map (attention
+    is independent per batch row and head); other DTensors take the ops one
+    by one through DTensor (e.g. a decode cache sharded on its sequence)."""
+    if _shardwise(q, k, v, k_scale, v_scale):
+        from torch.distributed.tensor import DTensor
+        local = [None if t is None else t.to_local() for t in (q, k, v, k_scale, v_scale)]
+        out = attention(*local[:3], impl=impl, causal=causal, window=window,
+                        q_offset=q_offset, kv_valid_len=kv_valid_len, k_scale=local[3],
+                        v_scale=local[4], chunk=chunk, softmax_scale=softmax_scale)
+        return DTensor.from_local(out.contiguous(), q.device_mesh, q.placements,
+                                  run_check=False, shape=q.shape,
+                                  stride=contiguous_stride(q.shape))
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               kv_valid_len=kv_valid_len, k_scale=k_scale, v_scale=v_scale,
               softmax_scale=softmax_scale)

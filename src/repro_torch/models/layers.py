@@ -1,8 +1,9 @@
 """Shared primitive layers: RMSNorm, RoPE, SwiGLU MLP, parameter specs.
 
 The PyTorch counterpart of ``repro.models.layers``.  Every parameter is
-described by a :class:`ParamSpec` carrying its logical axes; the same specs
-drive initialization.  Numerics follow the JAX package: norms, RoPE and the
+described by a :class:`ParamSpec` carrying its logical axes, from which the
+sharding plan derives its placement; the same specs drive abstract
+(dry-run: meta tensors, DTensors on a mesh) and concrete initialization.  Numerics follow the JAX package: norms, RoPE and the
 loss compute in float32 and cast back to the input's type.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ DTYPES = {
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,
     "int8": torch.int8,
+    "int32": torch.int32,
 }
 
 
@@ -76,6 +78,50 @@ def init_tree(generator: torch.Generator, specs, device):
     raise TypeError(f"not a spec tree: {type(specs).__name__}")
 
 
+def map_specs(fn, specs):
+    """``fn`` over the ParamSpec leaves of a nest of dicts and lists."""
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, specs[k]) for k in sorted(specs)}
+    if isinstance(specs, (list, tuple)):
+        return [map_specs(fn, s) for s in specs]
+    raise TypeError(f"not a spec tree: {type(specs).__name__}")
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (the global strides a
+    DTensor built from local shards declares)."""
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def place(t: torch.Tensor, plan, spec) -> torch.Tensor:
+    """``t`` as the plan places a tensor of PartitionSpec entries ``spec``:
+    a DTensor on the plan's mesh when it is distributed (``t`` is the whole
+    tensor; on the meta device nothing is allocated), else ``t`` itself."""
+    if not plan.info.distributed:
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, plan.info.mesh, plan.placements_of(spec))
+
+
+def abstract_tree(specs, plan):
+    """Meta tensors (DTensors when the plan's mesh is distributed) for a
+    ParamSpec nest: shapes, types and placements with no allocation."""
+    return map_specs(lambda s: place(torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                                                 device="meta"),
+                                     plan, plan.spec(*s.logical)), specs)
+
+
+def spec_tree_partition(specs, plan):
+    """PartitionSpec entries (tuples) matching a ParamSpec nest."""
+    return map_specs(lambda s: plan.spec(*s.logical), specs)
+
+
 # ---------------------------------------------------------------- numerics
 def rms_norm(x, weight, eps: float):
     dt = x.dtype
@@ -110,18 +156,46 @@ def swiglu(x, w_gate, w_up, w_down):
     return h @ w_down
 
 
+def vocab_iota(logits):
+    """arange over the vocab (last) dim of ``logits``, cut as that dim is:
+    on a mesh, a replicated arange met by vocab-sharded logits would make
+    DTensor gather the whole [batch, seq, vocab] logits to compare."""
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    if type(logits) is torch.Tensor:
+        return iota
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    last = logits.dim() - 1
+    return distribute_tensor(iota, logits.device_mesh,
+                             [Shard(0) if p.is_shard() and p.dim == last else Replicate()
+                              for p in logits.placements])
+
+
 def cross_entropy_loss(logits, labels, real_vocab: int, mask=None):
     """Mean token NLL over a vocab that may be padded past ``real_vocab``.
 
     logits: [..., V_pad]; labels: [...] int.  Padded entries are masked to
-    the finite -1e30 before the log-sum-exp.
+    the finite -1e30 before the log-sum-exp.  The label's logit is a
+    gather on one device.
     """
     logits = logits.float()
-    iota = torch.arange(logits.shape[-1], device=logits.device)
-    logits = torch.where(iota < real_vocab, logits, -1e30)
+    iota = vocab_iota(logits)
+    # masked_fill, not where with a scalar: on a mesh where's backward meets
+    # the scalar as a whole replicated [batch, seq, vocab] tensor
+    logits = logits.masked_fill(iota >= real_vocab, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - label_logit
+    if type(logits) is torch.Tensor:
+        nll = lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        # a DTensor sharded on the vocab: the JAX package's one-hot
+        # contraction, which stays per shard until the (tiny) reduction;
+        # nll and its gradient are held cut as the logits' rows, so that the
+        # gradient meets the one-hot per shard
+        from torch.distributed.tensor import Replicate
+        from repro_torch.sharding.plan import constrain
+        nll = lse - torch.sum(logits * (iota == labels[..., None]), dim=-1)
+        last = logits.dim() - 1
+        nll = constrain(nll, [Replicate() if p.is_partial() or (p.is_shard() and p.dim == last)
+                              else p for p in logits.placements])
     if mask is not None:
         nll = nll * mask
         return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,11 +1,11 @@
 """The language model, every family: the counterpart of ``repro.models.lm``.
 
-One :class:`LM` module = (ModelConfig, ShardingPlan) on one device.  It
-exposes:
+One :class:`LM` module = (ModelConfig, ShardingPlan).  It exposes:
 
-    param_specs()                         per-layer parameter specs
+    param_specs() / abstract_params()     per-layer parameter specs / meta tensors
+    param_partition_specs()               per-layer PartitionSpec entries
     forward(tokens, ...)                  train / prefill
-    init_cache()                          decode caches (KV / SSM / conv)
+    cache_struct() / init_cache()         decode caches (KV / SSM / conv)
     decode(cache, token, pos)             one-token serve step
 
 Design notes
@@ -34,6 +34,15 @@ Design notes
   the cross K/V are computed once at prefill and cached as
   ``{"self": ..., "cross": ...}``.  The vlm family (llava) prepends
   ``embeds_prefix`` to the token embeddings.
+* On a plan whose mesh is a DeviceMesh of more than one device, every
+  parameter is a DTensor placed from its logical axes (``plan.placements``),
+  and so are the caches; the JAX package's leading "layers"/"groups" axis,
+  which is never sharded, is the module list here.  DTensor propagates the
+  shardings through each operation, as XLA's SPMD partitioner does, and
+  ``plan.act`` redistributes where JAX constrains.  Plain tensors that meet
+  DTensors (masks, positions) count as replicated.  Built on
+  ``device="meta"``, the model draws nothing: its tensors have shapes and
+  types and no storage (the dry run).
 * Parameters are created with ``requires_grad=False`` (serving);
   ``lm.requires_grad_(True)`` makes them trainable.  A train forward under
   autograd checkpoints each layer (each hybrid group) as ``cfg.remat``
@@ -45,10 +54,12 @@ Design notes
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -57,8 +68,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (ParamSpec, apply_rope, cross_entropy_loss,
-                                       init_tree, rms_norm, swiglu, torch_dtype)
+from repro_torch.models.layers import (ParamSpec, abstract_tree, apply_rope,
+                                       contiguous_stride, cross_entropy_loss, init_tree,
+                                       map_specs, place, rms_norm, spec_tree_partition,
+                                       swiglu, torch_dtype, vocab_iota)
 from repro_torch.sharding.plan import ShardingPlan, make_plan
 
 
@@ -147,6 +160,25 @@ def _quantize_kv(x):
     return torch.clamp(q, -127, 127).to(torch.int8), scale
 
 
+def _write_pos(buf, pos: int, val):
+    """``buf[:, pos] = val[:, 0]`` in place (dim 1 the sequence).  A DTensor
+    cache, which may be sharded on its sequence (the flash-decode layout),
+    is written on its local shard by the rank that holds ``pos``; ``val``
+    is brought to the cache's placements with its sequence replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(buf, DTensor):
+        buf.index_copy_(1, torch.full((1,), pos, dtype=torch.long, device=buf.device), val)
+        return
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    mesh, pl = buf.device_mesh, buf.placements
+    val_pl = [Replicate() if p.is_shard() and p.dim == 1 else p for p in pl]
+    local = val.redistribute(mesh, val_pl).to_local()
+    shape, offset = compute_local_shape_and_global_offset(buf.shape, mesh, pl)
+    at = pos - offset[1]
+    if 0 <= at < shape[1]:
+        buf.to_local()[:, at] = local[:, 0]
+
+
 def _save_unbatched_products(ctx, op, *args, **kwargs):
     """The "dots" policy: keep the outputs of matrix products that have no
     batch dimension.  ``x @ w`` reaches the dispatcher as ``mm``, and an
@@ -227,7 +259,9 @@ class LM(nn.Module):
                  device="cuda", seed: int = 0):
         """Builds the model on ``device`` with weights drawn from a
         ``torch.Generator`` seeded with ``seed`` (fan-in normal, as the JAX
-        init draws them; the numbers differ from jax.random's)."""
+        init draws them; the numbers differ from jax.random's).  On
+        ``device="meta"`` nothing is drawn.  On a distributed plan each
+        weight is drawn whole and then placed (``layers.place``)."""
         super().__init__()
         self.cfg = cfg
         self.plan = plan or make_plan(cfg)
@@ -237,8 +271,14 @@ class LM(nn.Module):
         else:
             self.n_groups = 0
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        tree = init_tree(gen, self.param_specs(), dev)
+        specs = self.param_specs()
+        if dev.type == "meta":
+            tree = map_specs(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                                                   device=dev), specs)
+        else:
+            tree = init_tree(torch.Generator(device=dev).manual_seed(seed), specs, dev)
+        plan = self.plan
+        tree = _zip_specs(lambda t, s: place(t, plan, plan.spec(*s.logical)), tree, specs)
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
         self.lm_head = None if cfg.tie_embeddings else _param(tree["lm_head"])
@@ -255,6 +295,23 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def distributed(self) -> bool:
+        return self.plan.info.distributed
+
+    def spmd(self):
+        """The context the model runs in: on a distributed plan, plain
+        tensors that meet DTensors count as replicated."""
+        if not self.distributed:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import implicit_replication
+        # implicit_replication() switches the flag off on exit, nested or not:
+        # enter it only at the outermost level
+        if getattr(DTensor._op_dispatcher, "_allow_implicit_replication", False):
+            return contextlib.nullcontext()
+        return implicit_replication()
 
     # ------------------------------------------------------------- params
     def param_specs(self):
@@ -290,6 +347,13 @@ class LM(nn.Module):
                           for _ in range(L)]
         return p
 
+    def abstract_params(self):
+        """The parameters as meta tensors placed by the plan (no allocation)."""
+        return abstract_tree(self.param_specs(), self.plan)
+
+    def param_partition_specs(self):
+        return spec_tree_partition(self.param_specs(), self.plan)
+
     # ------------------------------------------------------------ helpers
     def _layer_window(self, i):
         """(window or None, RoPE theta) of attention layer ``i``."""
@@ -319,15 +383,26 @@ class LM(nn.Module):
         if "bq" in p:
             q = q + p["bq"]
         if cross_kv is not None:
+            q = plan.act(q, "batch", "seq", "q_heads", "head_dim")
             out = attn_mod.attention(
-                q, cross_kv["k"], cross_kv["v"], impl="dot", causal=False,
-                window=None, chunk=cfg.attention_chunk)
-            return torch.einsum("bshk,hkd->bsd", out, p["wo"]), None
+                q, *self._kv_for_sharded_q(cross_kv["k"], cross_kv["v"]), impl="dot",
+                causal=False, window=None, chunk=cfg.attention_chunk)
+            return self._sublayer_out(torch.einsum("bshk,hkd->bsd", out, p["wo"])), None
 
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-        if "bk" in p:
-            k, v = k + p["bk"], v + p["bv"]
+        # no cache to emit: widen the replicated kv weights to q's heads, so
+        # that each shard projects only the kv heads its q heads read
+        widened = self._kv_replicated() and cache is None and prefill_kv_dtype is None
+        wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+        if widened:
+            wk, wv = (self._widen(w, 1, ("embed", "q_heads", "head_dim")) for w in (wk, wv))
+            if bk is not None:
+                bk, bv = (self._widen(b, 0, ("q_heads", "head_dim")) for b in (bk, bv))
+        k = torch.einsum("bsd,dhk->bshk", x, wk)
+        v = torch.einsum("bsd,dhk->bshk", x, wv)
+        if bk is not None:
+            k, v = k + bk, v + bv
+        heads = "q_heads" if widened else "kv_heads"
+        k, v = (plan.act(t, "batch", "seq", heads, "head_dim") for t in (k, v))
         if pos is None:
             positions = torch.arange(S, device=x.device)[None, :]
         else:
@@ -339,28 +414,29 @@ class LM(nn.Module):
         new_cache = None
         if cache is not None:
             assert pos is not None
-            idx = torch.full((1,), pos, dtype=torch.long, device=x.device)
             if "k_scale" in cache:
                 kq, ks = _quantize_kv(k)
                 vq, vs = _quantize_kv(v)
-                cache["k"].index_copy_(1, idx, kq)
-                cache["v"].index_copy_(1, idx, vq)
-                cache["k_scale"].index_copy_(1, idx, ks)
-                cache["v_scale"].index_copy_(1, idx, vs)
+                for name, val in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+                    _write_pos(cache[name], pos, val)
                 k_scale, v_scale = cache["k_scale"], cache["v_scale"]
             else:
-                cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
-                cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+                _write_pos(cache["k"], pos, k.to(cache["k"].dtype))
+                _write_pos(cache["v"], pos, v.to(cache["v"].dtype))
                 k_scale = v_scale = None
             new_cache = cache
+            if self._kv_replicated():
+                # one query row: gather its heads rather than widen the cache
+                q = plan.act(q, "batch", "seq", None, "head_dim")
             out = attn_mod.attention(
                 q, cache["k"], cache["v"], impl="dot", causal=False,
                 window=window, q_offset=pos, kv_valid_len=pos + 1,
                 k_scale=k_scale, v_scale=v_scale, chunk=cfg.attention_chunk)
         else:
             out = attn_mod.attention(
-                q, k, v, impl=cfg.attention_impl, causal=causal, window=window,
-                chunk=cfg.attention_chunk)
+                q, *((k, v) if widened else self._kv_for_sharded_q(k, v)),
+                impl=cfg.attention_impl, causal=causal,
+                window=window, chunk=cfg.attention_chunk)
             if prefill_kv_dtype is not None:
                 if prefill_kv_dtype == "int8":
                     kq, ks = _quantize_kv(k)
@@ -370,15 +446,61 @@ class LM(nn.Module):
                     dt = torch_dtype(prefill_kv_dtype)
                     new_cache = {"k": k.to(dt), "v": v.to(dt)}
         out = plan.act(out, "batch", "seq", "q_heads", "head_dim")
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
+        return self._sublayer_out(torch.einsum("bshk,hkd->bsd", out, p["wo"])), new_cache
+
+    def _sublayer_out(self, h):
+        """A sub-layer's output back at (batch, seq, embed): on a mesh the
+        partial sums over the model axis are all-reduced here, where XLA's
+        partitioner places the all-reduce of a Megatron layer on its own
+        (DTensor left alone would rather gather the next layer's weights)."""
+        return self.plan.act(h, "batch", "seq", "embed")
+
+    def _kv_replicated(self) -> bool:
+        """Are the q heads sharded over the model axis while the kv heads
+        are replicated (``plan.kv_sharded`` False), with GQA groups?"""
+        plan = self.plan
+        return (self.distributed and plan.info.model_size > 1 and not plan.kv_sharded
+                and plan.H != plan.K)
+
+    def _kv_for_sharded_q(self, k, v):
+        """k, v for an attention whose q heads the model axis shards: when
+        the kv heads are replicated, each kv head is repeated for the q heads
+        of its group and the result sharded like q, so that every shard's q
+        heads meet their own kv heads (the same numbers as GQA; XLA's
+        partitioner splits the grouped product the same way)."""
+        if not self._kv_replicated():
+            return k, v
+        return tuple(self._widen(t, 2, ("batch", "seq", "q_heads", "head_dim"))
+                     for t in (k, v))
+
+    def _widen(self, t, dim, logical):
+        """``t`` with each of its K heads (at ``dim``) repeated for the
+        H // K q heads of its group, placed by ``logical``."""
+        from torch.distributed.tensor import DTensor
+        G = self.plan.H // self.plan.K
+        # the repeat runs on the local tensor, which holds the heads whole
+        # (they are replicated): DTensor need not propagate the reshape
+        mesh, placements = t.device_mesh, t.placements
+        assert all(not (p.is_shard() and p.dim == dim) for p in placements)
+        loc = t.to_local()
+        shape = loc.shape
+        loc = loc.unsqueeze(dim + 1).expand(*shape[:dim + 1], G, *shape[dim + 1:])
+        loc = loc.reshape(*shape[:dim], shape[dim] * G, *shape[dim + 1:])
+        full = list(t.shape)
+        full[dim] *= G
+        t = DTensor.from_local(loc, mesh, placements, run_check=False, shape=tuple(full),
+                               stride=contiguous_stride(full))
+        # DTensor's own redistribute: the gradient goes back replicated
+        return t.redistribute(mesh, self.plan.placements(*logical))
 
     def _ffn(self, x, p, is_moe: bool):
         """A MoE FFN or a dense SwiGLU with params ``p``; returns (y,
         aux_loss), the aux loss 0 for a dense FFN."""
         if is_moe:
-            return moe_mod.moe_ffn(x, p, self.cfg.moe, impl=self.cfg.moe_impl)
+            return moe_mod.moe_ffn(x, p, self.cfg.moe, self.plan, impl=self.cfg.moe_impl,
+                                   gather_mode=self.cfg.moe_gather)
         y = swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-        return y, torch.zeros((), device=x.device)
+        return self._sublayer_out(y), torch.zeros((), device=x.device)
 
     def _layer_call(self, train: bool):
         """How a stack calls one layer (or hybrid group): through
@@ -401,9 +523,14 @@ class LM(nn.Module):
         'cache'} with the cache at the prompt's length.  The enc-dec family
         needs ``enc_embeds`` [B, source_len, D]; ``embeds_prefix`` [B, n, D]
         goes before the token embeddings (vlm)."""
-        cfg = self.cfg
         if mode not in ("train", "prefill"):
             raise ValueError(f"unknown mode {mode!r}")
+        with self.spmd():
+            return self._forward(tokens, embeds_prefix=embeds_prefix, enc_embeds=enc_embeds,
+                                 labels=labels, mode=mode, kv_dtype=kv_dtype)
+
+    def _forward(self, tokens, *, embeds_prefix, enc_embeds, labels, mode, kv_dtype):
+        cfg = self.cfg
         x = self._embed_inputs(tokens, embeds_prefix)
         enc_out = None
         if cfg.encoder is not None:
@@ -435,11 +562,10 @@ class LM(nn.Module):
         v_real = self.cfg.vocab_size
         if logits.shape[-1] == v_real:
             return logits
-        iota = torch.arange(logits.shape[-1], device=logits.device)
-        return torch.where(iota < v_real, logits, -1e30)
+        return logits.masked_fill(vocab_iota(logits) >= v_real, -1e30)
 
     def _embed_inputs(self, tokens, embeds_prefix=None):
-        x = self.embed[tokens]
+        x = F.embedding(tokens, self.embed)
         x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
         if embeds_prefix is not None:
             x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
@@ -456,8 +582,8 @@ class LM(nn.Module):
                               window=None, theta=cfg.rope_theta, causal=False)
             x = x + h
             m = blk.mlp
-            return x + swiglu(rms_norm(x, blk.ln2, cfg.norm_eps),
-                              m["w_gate"], m["w_up"], m["w_down"])
+            return x + self._sublayer_out(swiglu(rms_norm(x, blk.ln2, cfg.norm_eps),
+                                                 m["w_gate"], m["w_up"], m["w_down"]))
 
         for blk in self.encoder:
             x = call(layer, x, blk)
@@ -489,7 +615,7 @@ class LM(nn.Module):
         def layer(x, blk, h0, conv0):
             h, states = ssm_mod.mamba_block(rms_norm(x, blk.ln, cfg.norm_eps), blk.mamba,
                                             cfg, h0=h0, conv0=conv0, decode=decode)
-            return x + h, states
+            return x + self._sublayer_out(h), states
 
         for i, blk in enumerate(self.blocks):
             h0 = conv0 = None
@@ -619,7 +745,7 @@ class LM(nn.Module):
                 states.append(h_new)
                 convs.append(conv_new)
                 mamba_i += 1
-            x = x + h
+            x = x + self._sublayer_out(h)
             xf = rms_norm(x, grp.ln_ffn[i], cfg.norm_eps)
             if cfg.is_moe_layer(i):
                 y, aux = self._ffn(xf, grp.moe[moe_i], is_moe=True)
@@ -637,41 +763,75 @@ class LM(nn.Module):
         counted).  Writes the new key and value (or the new SSM and conv
         states) into ``cache`` in place.  Returns (logits [B,1,V_pad] with
         the padded vocab masked, cache)."""
-        x = self._embed_inputs(token)
-        x, cache, _ = self._stack(x, cache=cache, pos=pos)
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        logits = torch.einsum("bsd,dv->bsv", x, self._head())
-        return self._mask_vocab(logits), cache
+        with self.spmd():
+            x = self._embed_inputs(token)
+            x, cache, _ = self._stack(x, cache=cache, pos=pos)
+            x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+            logits = torch.einsum("bsd,dv->bsv", x, self._head())
+            return self._mask_vocab(logits), cache
 
     # ----------------------------------------------------------- caches
-    def init_cache(self, batch: int, seq: int, kv_dtype: str = "bfloat16"):
+    def cache_layout(self, batch: int, seq: int, kv_dtype: str = "bfloat16"):
+        """The decode cache as a nest of (shape, dtype name, PartitionSpec
+        entries), in the JAX layout and with the JAX specs."""
         cfg, plan = self.cfg, self.plan
-        dev = self.device
 
-        def kv_layers(lead, S, dtype):
+        def kv_layers(lead, S, dtype, full):
+            n = len(lead)
             shape = (*lead, batch, S, plan.K, cfg.head_dim)
-            c = {"k": torch.zeros(shape, dtype=torch_dtype(dtype), device=dev),
-                 "v": torch.zeros(shape, dtype=torch_dtype(dtype), device=dev)}
+            kspec = (None,) * n + full[2:]
+            c = {"k": (shape, dtype, kspec), "v": (shape, dtype, kspec)}
             if dtype == "int8":
-                c["k_scale"] = torch.zeros(shape[:-1], device=dev)
-                c["v_scale"] = torch.zeros(shape[:-1], device=dev)
+                sspec = (None,) * n + full[2:-1]
+                c["k_scale"] = (shape[:-1], "float32", sspec)
+                c["v_scale"] = (shape[:-1], "float32", sspec)
             return c
 
         def ssm_layers(lead):
             s = cfg.ssm
+            n = len(lead)
             di, GN = s.d_inner(cfg.d_model), s.n_groups * s.d_state
-            return {"ssm": torch.zeros((*lead, batch, s.n_heads(cfg.d_model), s.head_dim,
-                                        s.d_state), device=dev),
-                    "conv": torch.zeros((*lead, batch, s.conv_width - 1, di + 2 * GN),
-                                        device=dev)}
+            return {"ssm": ((*lead, batch, s.n_heads(cfg.d_model), s.head_dim, s.d_state),
+                            "float32", (None,) * n + plan.ssm_cache_spec(batch)[1:]),
+                    "conv": ((*lead, batch, s.conv_width - 1, di + 2 * GN), "float32",
+                             (None,) * n + plan.conv_cache_spec(batch)[1:])}
 
+        full = plan.kv_cache_spec(batch)              # [L,2,B,S,K,hd]
         if cfg.family == "ssm":
             return ssm_layers((cfg.num_layers,))
         if cfg.family == "hybrid":
-            return {"attn": kv_layers((self.n_groups,), seq, kv_dtype),
+            return {"attn": kv_layers((self.n_groups,), seq, kv_dtype, full),
                     **ssm_layers((self.n_groups, cfg.hybrid.attn_period - 1))}
-        c = kv_layers((cfg.num_layers,), seq, kv_dtype)
+        c = kv_layers((cfg.num_layers,), seq, kv_dtype, full)
         if cfg.encoder is not None:
             return {"self": c, "cross": kv_layers((cfg.num_layers,), cfg.encoder.source_len,
-                                                  cfg.dtype)}
+                                                  cfg.dtype, (None,) + full[1:])}
         return c
+
+    def _make_cache(self, make, batch, seq, kv_dtype):
+        def build(node):
+            if isinstance(node, dict):
+                return {k: build(v) for k, v in node.items()}
+            shape, dtype, spec = node
+            return place(make(shape, torch_dtype(dtype)), self.plan, spec)
+        return build(self.cache_layout(batch, seq, kv_dtype))
+
+    def cache_struct(self, batch: int, seq: int, kv_dtype: str = "bfloat16"):
+        """The decode cache as meta tensors placed by the plan (no allocation)."""
+        return self._make_cache(lambda shape, dt: torch.empty(shape, dtype=dt, device="meta"),
+                                batch, seq, kv_dtype)
+
+    def init_cache(self, batch: int, seq: int, kv_dtype: str = "bfloat16"):
+        """A zero decode cache on the model's device (placed by the plan)."""
+        dev = self.device
+        return self._make_cache(lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev),
+                                batch, seq, kv_dtype)
+
+
+def _zip_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tensor nest and its ParamSpec nest."""
+    if isinstance(specs, ParamSpec):
+        return fn(tree, specs)
+    if isinstance(specs, dict):
+        return {k: _zip_specs(fn, tree[k], specs[k]) for k in specs}
+    return [_zip_specs(fn, t, sp) for t, sp in zip(tree, specs)]

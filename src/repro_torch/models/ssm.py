@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.account import named_scope
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
 from repro_torch.models.layers import rms_norm
@@ -29,16 +30,80 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     h0 optional initial state [b, H, P, N]
     returns (y [b,S,H,P] in x's dtype, h_final [b,H,P,N] fp32)
 
-    CPU tensors take the plain chunked scan with chunks of ``chunk`` rows;
-    CUDA tensors take K2 (which tiles by its own chunk length), under
-    autograd inside ``SSDScanFn``, whose backward differentiates the plain
-    scan with chunks of ``chunk`` rows.
+    It runs inside the "ssd_core" scope, as JAX's does.  CPU tensors take
+    the plain chunked scan with chunks of ``chunk`` rows; CUDA tensors take
+    K2 (which tiles by its own chunk length), under autograd inside
+    ``SSDScanFn``, whose backward differentiates the plain scan with chunks
+    of ``chunk`` rows; DTensors run shard by shard (``_ssd_per_shard``).
     """
-    y, h = ssd_scan_hmajor(
-        x.movedim(1, 2).contiguous(), dt.movedim(1, 2).contiguous(), A.float(),
-        B.movedim(1, 2).contiguous(), C.movedim(1, 2).contiguous(), chunk=chunk,
-        h0=None if h0 is None else h0.float().contiguous())
-    return y.movedim(1, 2), h
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return _ssd_per_shard(x, dt, A, B, C, chunk, h0)
+    with named_scope("ssd_core"):
+        y, h = ssd_scan_hmajor(
+            x.movedim(1, 2).contiguous(), dt.movedim(1, 2).contiguous(), A.float(),
+            B.movedim(1, 2).contiguous(), C.movedim(1, 2).contiguous(), chunk=chunk,
+            h0=None if h0 is None else h0.float().contiguous())
+        return y.movedim(1, 2), h
+
+
+def _cuts(pl, head_dim_of_x):
+    """``cut(batch_dim, head_dim)``: the placements ``pl`` of a tensor cut on
+    batch (dim 0) and heads (dim ``head_dim_of_x``) moved to another tensor's
+    batch and head dims (None: replicated there)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not all(p.is_replicate() or (p.is_shard() and p.dim in (0, head_dim_of_x))
+               for p in pl):
+        raise NotImplementedError(f"SSD on a tensor placed {pl}: want batch/head shards only")
+
+    def cut(batch_dim, head_dim):
+        dims = [None if p.is_replicate() else (batch_dim if p.dim == 0 else head_dim)
+                for p in pl]
+        return tuple(Replicate() if d is None else Shard(d) for d in dims)
+    return cut
+
+
+def _local(t, placements):
+    return None if t is None else t.redistribute(t.device_mesh, placements).to_local()
+
+
+def _ssd_per_shard(x, dt, A, B, C, chunk, h0):
+    """``ssd_chunked`` on DTensors, shard by shard (as under JAX's
+    shard_map: the scan is independent per batch row and head).  x may be
+    cut on batch (dim 0) and heads (dim 2); the other inputs are brought to
+    the matching cuts (B and C replicated over the heads' mesh axis, one
+    group)."""
+    from torch.distributed.tensor import DTensor
+    if B.shape[2] != 1:
+        raise NotImplementedError("SSD on a mesh takes one B/C group (every config has one)")
+    pl = x.placements
+    cut = _cuts(pl, 2)
+    y, h = ssd_chunked(_local(x, pl), _local(dt, pl), _local(A, cut(None, 0)),
+                       _local(B, cut(0, None)), _local(C, cut(0, None)), chunk=chunk,
+                       h0=_local(h0, cut(0, 1)))
+    mesh = x.device_mesh
+    # contiguous locals: the global strides DTensor keeps say contiguous
+    return (DTensor.from_local(y.contiguous(), mesh, pl, run_check=False, shape=x.shape,
+                               stride=x.stride()),
+            DTensor.from_local(h.contiguous(), mesh, cut(0, 1), run_check=False))
+
+
+def _decode_per_shard(h, x, dt, A, B, C):
+    """``ssd_decode_step`` on DTensors, shard by shard, cut as the state h
+    (batch dim 0, heads dim 1)."""
+    from torch.distributed.tensor import DTensor
+    if B.shape[1] != 1:
+        raise NotImplementedError("SSD on a mesh takes one B/C group (every config has one)")
+    pl = h.placements
+    cut = _cuts(pl, 1)
+    y, h_new = ssd_decode_step(_local(h, pl), _local(x, cut(0, 1)), _local(dt, cut(0, 1)),
+                               _local(A, cut(None, 0)), _local(B, cut(0, None)),
+                               _local(C, cut(0, None)))
+    mesh = h.device_mesh
+    return (DTensor.from_local(y.contiguous(), mesh, cut(0, 1), run_check=False,
+                               shape=x.shape, stride=x.stride()),
+            DTensor.from_local(h_new.contiguous(), mesh, pl, run_check=False, shape=h.shape,
+                               stride=h.stride()))
 
 
 def ssd_decode_step(h, x, dt, A, B, C):
@@ -47,6 +112,9 @@ def ssd_decode_step(h, x, dt, A, B, C):
     h [b,H,P,N] f32; x [b,H,P]; dt [b,H]; A [H]; B,C [b,G,N].
     returns (y [b,H,P] in x's dtype, h_new)
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(h, DTensor):
+        return _decode_per_shard(h, x, dt, A, B, C)
     H = h.shape[1]
     hg = H // B.shape[1]
     da = torch.exp(dt.float() * A[None])                          # [b,H]
@@ -59,7 +127,20 @@ def ssd_decode_step(h, x, dt, A, B, C):
 
 
 def causal_conv(x, w, b):
-    """Depthwise causal conv. x [B,S,C]; w [W,C]; b [C]."""
+    """Depthwise causal conv. x [B,S,C]; w [W,C]; b [C].  On a DTensor x
+    (cut on batch and channels, the sequence whole) it runs per shard: each
+    channel's conv needs only its own rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(x, DTensor):
+        pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+        if any(p.is_shard() and p.dim == 1 for p in pl):
+            raise NotImplementedError(f"causal conv on x placed {pl}: the sequence is cut")
+
+        def chan(dim):
+            return tuple(Shard(dim) if p.is_shard() and p.dim == 2 else Replicate() for p in pl)
+        y = causal_conv(_local(x, pl), _local(w, chan(1)), _local(b, chan(0)))
+        return DTensor.from_local(y.contiguous(), x.device_mesh, pl, run_check=False,
+                                  shape=x.shape, stride=x.stride())
     W, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
     out = 0
@@ -101,8 +182,8 @@ def mamba_block(u, p, cfg: ModelConfig, h0=None, conv0=None, decode: bool = Fals
     dt = u @ p["w_dt"]                                            # [B,S,nh]
     dt = F.softplus(dt.float() + p["dt_bias"].float())
 
-    xbc_raw = torch.cat([xc, Bp, Cp], dim=-1)
     if decode:
+        xbc_raw = torch.cat([xc, Bp, Cp], dim=-1)
         x0, B0, C0 = conv0[..., :di], conv0[..., di:di + GN], conv0[..., di + GN:]
         xc, _ = causal_conv_step(x0, xc[:, 0], p["conv_w"], p["conv_b"])
         Bp, _ = causal_conv_step(B0, Bp[:, 0], p["conv_wB"], p["conv_bB"])
@@ -111,12 +192,16 @@ def mamba_block(u, p, cfg: ModelConfig, h0=None, conv0=None, decode: bool = Fals
         ct = torch.promote_types(conv0.dtype, xbc_raw.dtype)
         conv_new = torch.cat([conv0.to(ct), xbc_raw.to(ct)], dim=1)[:, 1:]
     else:
+        xc_raw, B_raw, C_raw = xc, Bp, Cp
         xc = causal_conv(xc, p["conv_w"], p["conv_b"])
         Bp = causal_conv(Bp, p["conv_wB"], p["conv_bB"])
         Cp = causal_conv(Cp, p["conv_wC"], p["conv_bC"])
+        # the raw rows' tail, cut before the channels are joined: on a mesh
+        # only the tail of the model-sharded x channels is gathered
         W1 = s.conv_width - 1
-        tail = xbc_raw[:, -W1:] if S >= W1 else F.pad(xbc_raw, (0, 0, W1 - S, 0))
-        conv_new = tail.float()
+        raw = (t[:, -W1:] if S >= W1 else F.pad(t, (0, 0, W1 - S, 0))
+               for t in (xc_raw, B_raw, C_raw))
+        conv_new = torch.cat(list(raw), dim=-1).float()
 
     def silu(a):
         return F.silu(a.float()).to(u.dtype)

@@ -71,3 +71,12 @@ def batch_to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device=device,
                                       dtype=torch.long if v.dtype.kind == "i" else None)
             for k, v in batch.items()}
+
+
+def shard_batch(batch: dict, plan) -> dict:
+    """A device batch ([accum, mb, ...] tensors) placed with its microbatch
+    dim sharded over the data axes (dim 1 after accum), as JAX's
+    ``shard_batch`` puts it; on a one-device plan the batch as it is."""
+    from repro_torch.models.layers import place
+    d = plan.spec("batch")[0]
+    return {k: place(v, plan, (None, d) + (None,) * (v.dim() - 2)) for k, v in batch.items()}

@@ -6,8 +6,18 @@ their global norm (fp32).  The state (m, v, master) is fp32, or with
 ``state_bits=8`` int8 m and sqrt(v) in blocks of 256 with fp32 scales
 (``quantized_state``).  Every formula keeps the JAX package's order of
 float32 operations, so on the same inputs the two agree to float32
-rounding.  The ZeRO-1 sharding of the state over data axes comes with the
-sharding slice.
+rounding.
+
+ZeRO-1: on a mesh, the fp32 state (m, v, master) is sharded over the
+*data* axes in addition to the param's model-axis sharding: for each param
+the first dimension that is still replicated and divides the data-axis size
+(``_zero1_logical``, ``opt_state_specs``).  ``apply_updates_sharded_`` runs
+the update on DTensors: the gradient (already all-reduced over the data
+axes) is cut to each state shard, the shard is updated, and the new master
+is gathered back to the param's placement, where XLA, in the JAX package,
+reduce-scatters into the state shards and all-gathers the params.  The int8
+state runs on one device only (its blocks run over the whole flattened
+leaf).
 
 State and parameter trees are nested dicts of tensors (``tree``), in the
 JAX package's layout.  ``apply_updates_`` updates them in place, a slice
@@ -24,6 +34,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.models.layers import ParamSpec, map_specs
 from repro_torch.train.quantized_state import BLOCK, n_blocks, q8_decode, q8_encode
 from repro_torch.train.tree import items, tree_map
 
@@ -60,6 +71,49 @@ def schedule(step, cfg: OptimizerConfig) -> torch.Tensor:
     cos = 0.5 * (1 + torch.cos(math.pi * prog))
     decay = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos
     return cfg.learning_rate * warm * decay
+
+
+def _zero1_logical(spec: ParamSpec, plan):
+    """Logical axes for the fp32 state of `spec`: first still-replicated dim
+    that divides the data size is re-tagged to shard over data axes."""
+    if not plan.info.data_axes:
+        return spec.logical
+    dsz = plan.info.data_size
+    logical = list(spec.logical)
+    pspec = plan.spec(*spec.logical)
+    for i, (dim, ax) in enumerate(zip(spec.shape, pspec)):
+        if ax is None and dim % dsz == 0 and dim >= dsz:
+            logical[i] = "batch"          # "batch" maps to the data axes
+            return tuple(logical)
+    return spec.logical
+
+
+def opt_state_specs(param_specs, plan, cfg: OptimizerConfig):
+    """ParamSpec nest for the optimizer state."""
+    def f32_state(s: ParamSpec):
+        return ParamSpec(s.shape, _zero1_logical(s, plan), dtype="float32",
+                         init="zeros")
+
+    def q8_state(s: ParamSpec):
+        nb = n_blocks(s.shape)
+        scale_logical = ("blocks",) if (plan.info.num_devices > 1 and
+                                        nb % plan.info.num_devices == 0) else (None,)
+        return {"q": ParamSpec(s.shape, _zero1_logical(s, plan),
+                               dtype="int8", init="zeros"),
+                "scale": ParamSpec((nb,), scale_logical, dtype="float32",
+                                   init="zeros")}
+
+    mv_state = q8_state if cfg.state_bits == 8 else f32_state
+    state = {
+        "m": map_specs(mv_state, param_specs),
+        "v": map_specs(mv_state, param_specs),
+        "step": ParamSpec((), (), dtype="int32", init="zeros"),
+    }
+    if cfg.use_master:
+        def master(s: ParamSpec):
+            return ParamSpec(s.shape, _zero1_logical(s, plan), dtype="float32")
+        state["master"] = map_specs(master, param_specs)
+    return state
 
 
 def init_opt_state(params, cfg: OptimizerConfig):
@@ -161,3 +215,57 @@ def apply_updates(params, grads, opt_state, cfg: OptimizerConfig):
     params, opt_state = _clone(params), _clone(opt_state)
     metrics = apply_updates_(params, grads, opt_state, cfg)
     return params, opt_state, metrics
+
+
+def leaves(tree):
+    """The leaves of a nest of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+@torch.no_grad()
+def apply_updates_sharded_(params, grads, opt_state, cfg: OptimizerConfig):
+    """One AdamW step in place on DTensors (nests of dicts and lists with
+    the same structure): ``params`` placed by the plan, ``grads`` fp32 in the
+    params' placements, ``opt_state`` fp32 with the ZeRO-1 placements of
+    ``opt_state_specs``.  Returns the metrics {"lr", "grad_norm"}."""
+    if cfg.state_bits != 32:
+        raise NotImplementedError("the int8 optimizer state runs on one device only")
+    step = opt_state["step"] + 1                     # a replicated DTensor
+    stepf = step.full_tensor().float()
+    lr = schedule(stepf, cfg)
+    gs = leaves(grads)
+    total = 0
+    for g in gs:
+        total = total + torch.sum(torch.square(g)).full_tensor()
+    gnorm = torch.sqrt(total)
+    clip = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+            if cfg.clip_norm > 0 else 1.0)
+    b1, b2 = cfg.beta1, cfg.beta2
+    bc1 = 1 - torch.pow(b1, stepf)
+    bc2 = 1 - torch.pow(b2, stepf)
+    masters = (leaves(opt_state["master"]) if cfg.use_master
+               else [None] * len(gs))
+    for p, g, m, v, master in zip(leaves(params), gs, leaves(opt_state["m"]),
+                                  leaves(opt_state["v"]), masters):
+        # the gradient cut to the state's shards (no data moves: it is
+        # replicated over the data axes)
+        g = g.redistribute(m.device_mesh, m.placements).to_local() * clip
+        m_l, v_l = m.to_local(), v.to_local()
+        m_l.mul_(b1).add_((1 - b1) * g)
+        v_l.mul_(b2).add_((1 - b2) * torch.square(g))
+        base = (master.to_local() if master is not None else
+                p.redistribute(m.device_mesh, m.placements).to_local().float())
+        delta = (m_l / bc1) / (torch.sqrt(v_l / bc2) + cfg.eps) + cfg.weight_decay * base
+        new_master = base - lr * delta
+        if master is not None:
+            master.to_local().copy_(new_master)
+        full = type(m).from_local(new_master, m.device_mesh, m.placements, run_check=False,
+                                  shape=m.shape, stride=m.stride())
+        # the ZeRO-1 gather: the updated shards back to the param's placement
+        p.copy_(full.redistribute(p.device_mesh, p.placements).to(p.dtype))
+    opt_state["step"] = step
+    return {"lr": lr, "grad_norm": gnorm}

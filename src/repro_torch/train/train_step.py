@@ -10,6 +10,13 @@ the model's parameters trainable views into ``state["params"]``
 checkpoint saves, and the int8 state's blocks of 256 run over the same
 flattened stacked leaves as JAX's.  The step updates the state in place
 and returns it with the metrics {"loss", "lr", "grad_norm"}.
+
+On a distributed plan (a DeviceMesh of more than one device) the model's
+parameters are DTensors, one per layer, and ``make_sharded_train_step``
+takes the state ``{"params": lm's parameters, "opt": the ZeRO-1 state of
+train_state_specs}``: each microbatch's gradients (partial sums over the
+data axes) are all-reduced over the data axes as they are added to the fp32
+sums, then ``optimizer.apply_updates_sharded_`` updates the state shards.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from repro_torch.models.convert import (jax_layout, params_from_jax, stack_param
                                        tensor_from_array)
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.lm import LM
+from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates_, init_opt_state
 from repro_torch.train.tree import items, unflatten
 
@@ -108,3 +116,66 @@ def load_state_(state, tree):
             raise ValueError(f"shape mismatch for {key}: {tuple(src.shape)} vs state "
                              f"{tuple(target[key].shape)}")
         target[key].copy_(src)
+
+
+def train_state_specs(lm: LM, ocfg: OptimizerConfig):
+    """ParamSpec nest for the full train state (dry run / placements), over
+    the port's per-layer parameter specs."""
+    pspecs = lm.param_specs()
+    return {"params": pspecs, "opt": opt_mod.opt_state_specs(pspecs, lm.plan, ocfg)}
+
+
+def param_tree(lm: LM):
+    """The model's parameters in the nest of ``lm.param_specs()`` (per-layer
+    lists), leaves the ``nn.Parameter`` objects themselves."""
+    def walk(specs, prefix):
+        if isinstance(specs, dict):
+            return {k: walk(specs[k], prefix + [k]) for k in specs}
+        if isinstance(specs, list):
+            return [walk(s, prefix + [str(i)]) for i, s in enumerate(specs)]
+        return lm.get_parameter(".".join(prefix))
+    return walk(lm.param_specs(), [])
+
+
+def make_sharded_train_step(lm: LM, ocfg: OptimizerConfig, *, grad_dtype: str = "bfloat16"):
+    """The train step over DTensor state (see the module docstring):
+    (state, batch) -> (state, metrics), ``batch`` of [accum, mb, ...]
+    DTensors sharded on the microbatch."""
+    gdt = torch_dtype(grad_dtype)
+    loss_fn = make_loss_fn(lm)
+
+    def train_step(state, batch):
+        params = state["params"]
+        plist = opt_mod.leaves(params)
+        with lm.spmd():
+            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in plist]
+            lsum = 0.0
+            accum = batch["tokens"].shape[0]
+            for a in range(accum):
+                loss = loss_fn({k: v[a] for k, v in batch.items()})
+                loss.backward()
+                with torch.no_grad():
+                    for acc, p in zip(gsum, plist):
+                        if p.grad is not None:
+                            # Partial over the data axes -> replicated: the
+                            # data-parallel all-reduce
+                            g = p.grad.to(gdt).float()
+                            acc.add_(g.redistribute(acc.device_mesh, acc.placements))
+                            p.grad = None
+                lsum = lsum + loss.detach().float()
+            with torch.no_grad():
+                for acc in gsum:
+                    acc.div_(accum)
+            grads = _like(params, iter(gsum))
+            metrics = opt_mod.apply_updates_sharded_(params, grads, state["opt"], ocfg)
+        return state, dict(metrics, loss=lsum / accum)
+
+    return train_step
+
+
+def _like(tree, it):
+    if isinstance(tree, dict):
+        return {k: _like(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_like(t, it) for t in tree]
+    return next(it)
