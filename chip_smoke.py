@@ -165,8 +165,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    11 (e); the plain K1 a block of 2,048 query rows at a time), timed
    beside their bounds and, for K1, SDPA.  (b) ``python -m
    repro_torch.launch.dryrun`` on the host (meta DTensors over a fake
-   process group, no card), one process per cell, all six started before
-   phase 12 and collected here: internlm2-1.8b and
+   process group, no card), one single-threaded process per cell, all six
+   started after the last timed phase (so that no host time above is
+   measured beside them) and each given ``DRYRUN_TIMEOUT_S``: internlm2-1.8b and
    phi3.5-moe-42b-a6.6b at train_4k and decode_32k on 16x16, internlm2-1.8b
    train_4k on 2x16x16 and mamba2-1.3b prefill_32k on 16x16; each record
    ok with FLOPs > 0, an all-reduce among the train cells' collectives and
@@ -2313,16 +2314,21 @@ DRYRUN_PLANS = {
 }
 
 
+# seconds each dry-run process may take (the slowest, phi3.5-moe train_4k
+# with 8 microbatches, took 86 s beside phase 12)
+DRYRUN_TIMEOUT_S = 600
+
+
 def start_dryrun():
-    """Phase 14 (b), started before phase 12: one dry-run process per cell,
-    all at once (host CPU only: meta tensors, a fake process group; phase
-    12 keeps the card busy and one host core)."""
+    """Phase 14 (b), started after every timed phase: one dry-run process
+    per cell, all at once, each on one thread (host CPU only: meta tensors,
+    a fake process group)."""
     import os
     import shutil
     out = ROOT / "build" / "chip_smoke_dryrun"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     procs = []
     for i, (arch, shape, multi_pod) in enumerate(DRYRUN_CELLS):
         argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
@@ -2338,8 +2344,15 @@ def finish_dryrun(state):
     """Phase 14 (b): every cell's record must be ok with FLOPs > 0, the
     data-parallel train cells must all-reduce, and the plan fields must be
     JAX's.  Returns the ``dryrun`` line's body."""
-    for proc in state["procs"]:
-        proc.wait()
+    try:
+        for proc in state["procs"]:
+            proc.wait(timeout=max(DRYRUN_TIMEOUT_S - (time.perf_counter() - state["t0"]), 1))
+    except subprocess.TimeoutExpired as e:
+        fail(f"dry run: a cell ran past {DRYRUN_TIMEOUT_S} s ({e.cmd[3:]})")
+    finally:
+        for proc in state["procs"]:
+            proc.kill()
+            proc.wait()
     out = ROOT / "build" / "chip_smoke_dryrun"
     cells = []
     for i, (arch, shape, multi_pod) in enumerate(DRYRUN_CELLS):
@@ -2590,7 +2603,6 @@ def main():
     print(json.dumps({"families": {**families, "card": card,
                                    "phase_s": time.perf_counter() - t_fam}}))
     torch.cuda.empty_cache()
-    dryrun = start_dryrun()          # phase 14 (b) on the host, beside phase 12
     train_line, train_launches = run_train_phase()
     print(json.dumps({"train": {**train_line, "card": card}}))
     torch.cuda.empty_cache()
@@ -2599,7 +2611,8 @@ def main():
     torch.cuda.empty_cache()
     cells_line = run_cells_phase(card)
     print(json.dumps({"cells": cells_line}))
-    print(json.dumps({"dryrun": finish_dryrun(dryrun)}))
+    # phase 14 (b) on the host, after the last timed phase
+    print(json.dumps({"dryrun": finish_dryrun(start_dryrun())}))
     cell_launches = {k: {f"{c['arch']}|{c['shape']}": c["launches"][k]
                          for c in cells_line["cells"]} for k in ("K1", "K2")}
     cell_shapes = {k: [e for e in cells_line["shapes"] if e["name"].startswith(k)]

@@ -22,7 +22,7 @@ shapes are not counted.  It accumulates:
                            counts the update read and written, not the whole
                            buffer, as hlo.py counts dynamic-update-slice)
 
-``named_scope(tag)`` marks a region ("attention_core", "ssd_core", as
+``core.scope.named_scope(tag)`` marks a region ("attention_core", "ssd_core", as
 ``jax.named_scope`` does in the JAX package), and the traffic of the
 operations dispatched inside it is also summed by tag.  The scope covers
 the forward only: the JAX package's tags also reach the backward's
@@ -35,16 +35,16 @@ A tensor freed while a view of it lives counts as freed.
 """
 from __future__ import annotations
 
-import threading
 import weakref
 from collections import defaultdict
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+from repro_torch.core.scope import current_scopes
 
 TRAFFIC_TAGS = ("attention_core", "ssd_core")
 
@@ -67,24 +67,9 @@ _NO_TRAFFIC = {_aten.empty.memory_format, _aten.empty_strided.default,
                _aten.new_empty_strided.default, _aten.detach.default,
                _aten.lift_fresh.default}
 
-_scopes = threading.local()
-
-
-@contextmanager
-def named_scope(tag: str):
-    """Tag the operations dispatched inside (see the module docstring)."""
-    stack = getattr(_scopes, "stack", None)
-    if stack is None:
-        stack = _scopes.stack = []
-    stack.append(tag)
-    try:
-        yield
-    finally:
-        stack.pop()
-
 
 def _current_tag() -> Optional[str]:
-    for tag in reversed(getattr(_scopes, "stack", ())):
+    for tag in reversed(current_scopes()):
         if tag in TRAFFIC_TAGS:
             return tag
     return None

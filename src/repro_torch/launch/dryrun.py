@@ -12,7 +12,7 @@ by the sharding plan, nothing is allocated and no data moves.  The step
 runs once on them under ``analysis.account.Account``, which counts its
 per-device FLOPs, HBM traffic and collective bytes; ``analysis.roofline``
 turns those into the record's roofline terms for the card named by
-``--device`` (default the H100 SXM).
+``--roofline-device`` (default the H100 SXM).
 
 Each JSONL record has the JAX record's keys, with one rename and one
 addition: ``trace_s`` (the seconds to build the cell and run it on the meta
@@ -45,6 +45,7 @@ from repro_torch.configs.base import SHAPES, get_config, shape_applicable
 from repro_torch.launch.cells import build_cell
 from repro_torch.launch.mesh import (fake_process_group, make_production_mesh,
                                      production_mesh_shape)
+from repro_torch.train.tree import leaves
 
 SKIP_REASON = "sub-quadratic shape on full-attention arch (DESIGN.md §6)"
 
@@ -52,15 +53,13 @@ SKIP_REASON = "sub-quadratic shape on full-attention arch (DESIGN.md §6)"
 def _local_bytes(tree) -> int:
     """Per-device bytes of the tensors of a nest (a DTensor's local shard)."""
     from torch.distributed.tensor import DTensor
-    if isinstance(tree, dict):
-        return sum(_local_bytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(_local_bytes(v) for v in tree)
-    if isinstance(tree, DTensor):
-        tree = tree.to_local()
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    return 0
+    total = 0
+    for t in leaves(tree):
+        if isinstance(t, DTensor):
+            t = t.to_local()
+        if isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
 
 
 def memory_estimate(cell, out, peak_live: float) -> dict:
@@ -86,7 +85,8 @@ def memory_estimate(cell, out, peak_live: float) -> dict:
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, accum=None,
-             overrides=None, verbose: bool = True, device: str = DEFAULT_DEVICE) -> dict:
+             overrides=None, verbose: bool = True,
+             roofline_device: str = DEFAULT_DEVICE) -> dict:
     """Build one (arch x shape x mesh) cell on meta DTensors and run it once
     under the account; return the record."""
     mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -128,9 +128,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, accum=None,
             del out
             t_trace = time.time() - t0
             terms = build_terms(arch, cell.lm.cfg, shape, mesh_name, mesh.size(), acct,
-                                mem["peak_estimate_bytes"], device=device)
+                                mem["peak_estimate_bytes"], device=roofline_device)
         rec.update(
-            status="ok", trace_s=round(t_trace, 1), device=device,
+            status="ok", trace_s=round(t_trace, 1), device=roofline_device,
             accum_steps=cell.accum_steps,
             plan={"H": cell.plan.H, "K": cell.plan.K, "V": cell.plan.V,
                   "kv_sharded": cell.plan.kv_sharded,
@@ -166,8 +166,9 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default=None, help="append JSONL records here")
     ap.add_argument("--accum", type=int, default=None)
-    ap.add_argument("--device", default=DEFAULT_DEVICE,
-                    help="the card the roofline is reckoned for")
+    ap.add_argument("--roofline-device", default=DEFAULT_DEVICE,
+                    help="the card the roofline is reckoned for (a name of "
+                         "analysis.roofline's table)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs.all_configs import ARCH_IDS
@@ -180,7 +181,7 @@ def main(argv=None):
         for arch in archs:
             for shape in shapes:
                 rec = run_cell(arch, shape, multi_pod=multi_pod,
-                               accum=args.accum, device=args.device)
+                               accum=args.accum, roofline_device=args.roofline_device)
                 records.append(rec)
                 if args.out:
                     with open(args.out, "a") as f:

@@ -7,43 +7,21 @@ starts: one real group (gloo or nccl) for a run, or the fake group of
 ``fake_process_group`` for the dry run, whose 256 or 512 ranks stand in for
 the placeholder host devices that JAX's dry run gets from
 ``--xla_force_host_platform_device_count``.  A one-device mesh needs no
-process group: ``make_mesh`` returns an :class:`AbstractMesh` for it, and
+process group: ``make_mesh`` returns a ``sharding.plan.AbstractMesh`` for it, and
 the model then holds plain tensors on that device.
 """
 from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from dataclasses import dataclass
 
-
-@dataclass(frozen=True)
-class AbstractMesh:
-    """A device-less mesh: axis sizes and names only, which is all the
-    sharding plan's rules read (JAX's ``AbstractMesh``).  ``device_type``
-    names where a one-device mesh runs."""
-    axis_sizes: tuple
-    axis_names: tuple
-    device_type: str = "cpu"
-
-    @property
-    def shape(self) -> dict:
-        """{axis name: size}, as JAX's ``mesh.shape``."""
-        return dict(zip(self.axis_names, self.axis_sizes))
-
-    @property
-    def size(self) -> int:
-        return math.prod(self.axis_sizes)
-
-
-def make_abstract_mesh(shape, axes, device_type: str = "cpu") -> AbstractMesh:
-    return AbstractMesh(tuple(shape), tuple(axes), device_type)
+from repro_torch.sharding.plan import make_abstract_mesh
 
 
 def make_mesh(shape, axes, device_type: str = "cuda"):
     """A mesh of ``shape`` named ``axes``: a ``DeviceMesh`` over the
     default process group (which must have ``prod(shape)`` ranks), or an
-    :class:`AbstractMesh` on ``device_type`` when ``shape`` holds one
+    ``AbstractMesh`` on ``device_type`` when ``shape`` holds one
     device."""
     shape, axes = tuple(shape), tuple(axes)
     if math.prod(shape) == 1:

@@ -13,7 +13,7 @@ Shapes: q [B, Sq, H, hd]; k, v [B, Skv, K, hd]; H % K == 0 (GQA groups).
 be int8 with per-(b,s,k) scales (quantized decode cache).  Score products
 run in float32, as the JAX package's ``preferred_element_type`` asks.
 The dot and chunked paths run inside the "attention_core" scope
-(``analysis.account.named_scope``), as JAX's run in its named scope: the
+(``core.scope.named_scope``), as JAX's run in its named scope: the
 account sums their traffic by that tag.
 """
 from __future__ import annotations
@@ -21,8 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.analysis.account import named_scope
-from repro_torch.models.layers import contiguous_stride
+from repro_torch.core.scope import named_scope
+from repro_torch.sharding.plan import per_shard
 
 NEG_INF = -1e30
 
@@ -155,14 +155,12 @@ def attention(q, k, v, *, impl="auto", causal=True, window=None, q_offset=0,
     is independent per batch row and head); other DTensors take the ops one
     by one through DTensor (e.g. a decode cache sharded on its sequence)."""
     if _shardwise(q, k, v, k_scale, v_scale):
-        from torch.distributed.tensor import DTensor
-        local = [None if t is None else t.to_local() for t in (q, k, v, k_scale, v_scale)]
-        out = attention(*local[:3], impl=impl, causal=causal, window=window,
-                        q_offset=q_offset, kv_valid_len=kv_valid_len, k_scale=local[3],
-                        v_scale=local[4], chunk=chunk, softmax_scale=softmax_scale)
-        return DTensor.from_local(out.contiguous(), q.device_mesh, q.placements,
-                                  run_check=False, shape=q.shape,
-                                  stride=contiguous_stride(q.shape))
+        def local(q, k, v, k_scale, v_scale):
+            return attention(q, k, v, impl=impl, causal=causal, window=window,
+                             q_offset=q_offset, kv_valid_len=kv_valid_len, k_scale=k_scale,
+                             v_scale=v_scale, chunk=chunk, softmax_scale=softmax_scale)
+        pl = q.placements
+        return per_shard(local, (pl,) * 5, pl)(q, k, v, k_scale, v_scale)
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               kv_valid_len=kv_valid_len, k_scale=k_scale, v_scale=v_scale,
               softmax_scale=softmax_scale)

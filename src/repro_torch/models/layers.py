@@ -14,6 +14,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.train.tree import tree_map
+
 DTYPES = {
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,
@@ -69,34 +71,7 @@ def init_param(generator: torch.Generator, spec: ParamSpec, device) -> torch.Ten
 def init_tree(generator: torch.Generator, specs, device):
     """Initialize a nest (dicts and lists) of ParamSpec into tensors, drawing
     the leaves in traversal order (dict keys sorted, as jax flattens)."""
-    if isinstance(specs, ParamSpec):
-        return init_param(generator, specs, device)
-    if isinstance(specs, dict):
-        return {k: init_tree(generator, specs[k], device) for k in sorted(specs)}
-    if isinstance(specs, (list, tuple)):
-        return [init_tree(generator, s, device) for s in specs]
-    raise TypeError(f"not a spec tree: {type(specs).__name__}")
-
-
-def map_specs(fn, specs):
-    """``fn`` over the ParamSpec leaves of a nest of dicts and lists."""
-    if isinstance(specs, ParamSpec):
-        return fn(specs)
-    if isinstance(specs, dict):
-        return {k: map_specs(fn, specs[k]) for k in sorted(specs)}
-    if isinstance(specs, (list, tuple)):
-        return [map_specs(fn, s) for s in specs]
-    raise TypeError(f"not a spec tree: {type(specs).__name__}")
-
-
-def contiguous_stride(shape) -> tuple:
-    """The strides of a contiguous tensor of ``shape`` (the global strides a
-    DTensor built from local shards declares)."""
-    stride, acc = [], 1
-    for n in reversed(shape):
-        stride.append(acc)
-        acc *= n
-    return tuple(reversed(stride))
+    return tree_map(lambda s: init_param(generator, s, device), specs)
 
 
 def place(t: torch.Tensor, plan, spec) -> torch.Tensor:
@@ -112,14 +87,14 @@ def place(t: torch.Tensor, plan, spec) -> torch.Tensor:
 def abstract_tree(specs, plan):
     """Meta tensors (DTensors when the plan's mesh is distributed) for a
     ParamSpec nest: shapes, types and placements with no allocation."""
-    return map_specs(lambda s: place(torch.empty(s.shape, dtype=torch_dtype(s.dtype),
-                                                 device="meta"),
-                                     plan, plan.spec(*s.logical)), specs)
+    return tree_map(lambda s: place(torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                                                device="meta"),
+                                    plan, plan.spec(*s.logical)), specs)
 
 
 def spec_tree_partition(specs, plan):
     """PartitionSpec entries (tuples) matching a ParamSpec nest."""
-    return map_specs(lambda s: plan.spec(*s.logical), specs)
+    return tree_map(lambda s: plan.spec(*s.logical), specs)
 
 
 # ---------------------------------------------------------------- numerics

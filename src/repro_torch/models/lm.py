@@ -65,14 +65,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.scope import current_scopes
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, abstract_tree, apply_rope,
-                                       contiguous_stride, cross_entropy_loss, init_tree,
-                                       map_specs, place, rms_norm, spec_tree_partition,
+                                       cross_entropy_loss, init_tree,
+                                       place, rms_norm, spec_tree_partition,
                                        swiglu, torch_dtype, vocab_iota)
-from repro_torch.sharding.plan import ShardingPlan, make_plan
+from repro_torch.sharding.plan import ShardingPlan, make_plan, per_shard
+from repro_torch.train.tree import tree_map
 
 
 def resolve_device(device) -> torch.device:
@@ -184,11 +186,15 @@ def _save_unbatched_products(ctx, op, *args, **kwargs):
     batch dimension.  ``x @ w`` reaches the dispatcher as ``mm``, and an
     einsum without batch axes (``bsd,dhk->bshk``) as ``bmm`` with a batch
     of 1; attention scores and the experts' ``bmm`` have a real batch and
-    are recomputed, as in JAX.  K1 and K2 are ctypes launches that the
-    dispatcher never sees: only the ``empty`` buffers they fill are ops
-    here, and those are recomputed (and refilled) with the rest."""
+    are recomputed, as in JAX.  The experts' batch is theirs even when a
+    mesh shard holds one expert (phi3.5-moe's 16 over a model axis of 16):
+    the products in the "experts" scope are always recomputed.  K1 and K2
+    are ctypes launches that the dispatcher never sees: only the ``empty``
+    buffers they fill are ops here, and those are recomputed (and
+    refilled) with the rest."""
     if op is torch.ops.aten.mm.default or (op is torch.ops.aten.bmm.default
-                                           and args[0].shape[0] == 1):
+                                           and args[0].shape[0] == 1
+                                           and "experts" not in current_scopes()):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -273,12 +279,12 @@ class LM(nn.Module):
         dev = resolve_device(device)
         specs = self.param_specs()
         if dev.type == "meta":
-            tree = map_specs(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
-                                                   device=dev), specs)
+            tree = tree_map(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                                                  device=dev), specs)
         else:
             tree = init_tree(torch.Generator(device=dev).manual_seed(seed), specs, dev)
         plan = self.plan
-        tree = _zip_specs(lambda t, s: place(t, plan, plan.spec(*s.logical)), tree, specs)
+        tree = tree_map(lambda s, t: place(t, plan, plan.spec(*s.logical)), specs, tree)
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
         self.lm_head = None if cfg.tie_embeddings else _param(tree["lm_head"])
@@ -389,20 +395,26 @@ class LM(nn.Module):
                 causal=False, window=None, chunk=cfg.attention_chunk)
             return self._sublayer_out(torch.einsum("bshk,hkd->bsd", out, p["wo"])), None
 
-        # no cache to emit: widen the replicated kv weights to q's heads, so
-        # that each shard projects only the kv heads its q heads read
+        # no cache to emit: widen the replicated kv weights so that each
+        # shard projects only the kv heads its q heads read, then repeat
+        # them (locally) for those q heads
         widened = self._kv_replicated() and cache is None and prefill_kv_dtype is None
         wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
         if widened:
-            wk, wv = (self._widen(w, 1, ("embed", "q_heads", "head_dim")) for w in (wk, wv))
+            w_rep, k_rep = self._kv_widening()
+            wk, wv = (self._widen(w, 1, w_rep, ("embed", "q_heads", "head_dim"))
+                      for w in (wk, wv))
             if bk is not None:
-                bk, bv = (self._widen(b, 0, ("q_heads", "head_dim")) for b in (bk, bv))
+                bk, bv = (self._widen(b, 0, w_rep, ("q_heads", "head_dim")) for b in (bk, bv))
         k = torch.einsum("bsd,dhk->bshk", x, wk)
         v = torch.einsum("bsd,dhk->bshk", x, wv)
         if bk is not None:
             k, v = k + bk, v + bv
         heads = "q_heads" if widened else "kv_heads"
         k, v = (plan.act(t, "batch", "seq", heads, "head_dim") for t in (k, v))
+        if widened and k_rep > 1:
+            k, v = (self._widen(t, 2, k_rep, ("batch", "seq", "q_heads", "head_dim"))
+                    for t in (k, v))
         if pos is None:
             positions = torch.arange(S, device=x.device)[None, :]
         else:
@@ -470,28 +482,32 @@ class LM(nn.Module):
         partitioner splits the grouped product the same way)."""
         if not self._kv_replicated():
             return k, v
-        return tuple(self._widen(t, 2, ("batch", "seq", "q_heads", "head_dim"))
+        G = self.plan.H // self.plan.K
+        return tuple(self._widen(t, 2, G, ("batch", "seq", "q_heads", "head_dim"))
                      for t in (k, v))
 
-    def _widen(self, t, dim, logical):
-        """``t`` with each of its K heads (at ``dim``) repeated for the
-        H // K q heads of its group, placed by ``logical``."""
-        from torch.distributed.tensor import DTensor
-        G = self.plan.H // self.plan.K
-        # the repeat runs on the local tensor, which holds the heads whole
-        # (they are replicated): DTensor need not propagate the reshape
-        mesh, placements = t.device_mesh, t.placements
-        assert all(not (p.is_shard() and p.dim == dim) for p in placements)
-        loc = t.to_local()
-        shape = loc.shape
-        loc = loc.unsqueeze(dim + 1).expand(*shape[:dim + 1], G, *shape[dim + 1:])
-        loc = loc.reshape(*shape[:dim], shape[dim] * G, *shape[dim + 1:])
-        full = list(t.shape)
-        full[dim] *= G
-        t = DTensor.from_local(loc, mesh, placements, run_check=False, shape=tuple(full),
-                               stride=contiguous_stride(full))
-        # DTensor's own redistribute: the gradient goes back replicated
-        return t.redistribute(mesh, self.plan.placements(*logical))
+    def _kv_widening(self):
+        """(weight repeat, activation repeat) of the widened kv projection:
+        a shard holding q heads of one GQA group projects that group's kv
+        head once (weights repeated to one head per shard) and repeats it
+        for its q heads, as XLA's partitioner splits the product; otherwise
+        every q head gets its own copy."""
+        plan = self.plan
+        G, per_shard_q = plan.H // plan.K, plan.H // plan.info.model_size
+        if G % per_shard_q == 0:
+            return G // per_shard_q, per_shard_q
+        return G, 1
+
+    def _widen(self, t, dim, n, logical):
+        """``t`` with each of its heads (at ``dim``) repeated ``n`` times in
+        place, placed by ``logical``.  The repeat runs on each shard's local
+        tensor (DTensor need not propagate it): a whole dim repeats whole,
+        and a dim cut over the mesh repeats within each shard, which is the
+        same order."""
+        t = per_shard(lambda loc: torch.repeat_interleave(loc, n, dim=dim),
+                      (t.placements,), t.placements)(t)
+        # DTensor's own redistribute: the gradient goes back as t was placed
+        return t.redistribute(t.device_mesh, self.plan.placements(*logical))
 
     def _ffn(self, x, p, is_moe: bool):
         """A MoE FFN or a dense SwiGLU with params ``p``; returns (y,
@@ -827,11 +843,3 @@ class LM(nn.Module):
         return self._make_cache(lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev),
                                 batch, seq, kv_dtype)
 
-
-def _zip_specs(fn, tree, specs):
-    """``fn(leaf, spec)`` over a tensor nest and its ParamSpec nest."""
-    if isinstance(specs, ParamSpec):
-        return fn(tree, specs)
-    if isinstance(specs, dict):
-        return {k: _zip_specs(fn, tree[k], specs[k]) for k in specs}
-    return [_zip_specs(fn, t, sp) for t, sp in zip(tree, specs)]

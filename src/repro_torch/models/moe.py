@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core.scope import named_scope
+from repro_torch.sharding.plan import per_shard
 
 
 def router_probs(x2d, w_router):
@@ -100,11 +102,13 @@ def moe_ffn_dense(x, params, moe: MoEConfig):
 
 
 def _expert_swiglu(buf, params):
-    """buf [E,C,D] -> [E,C,D] through each expert's SwiGLU."""
-    hg = torch.bmm(buf, params["w_gate"])
-    hu = torch.bmm(buf, params["w_up"])
-    h = F.silu(hg.float()).to(buf.dtype) * hu
-    return torch.bmm(h, params["w_down"])
+    """buf [E,C,D] -> [E,C,D] through each expert's SwiGLU (in the
+    "experts" scope: see ``models.lm._save_unbatched_products``)."""
+    with named_scope("experts"):
+        hg = torch.bmm(buf, params["w_gate"])
+        hu = torch.bmm(buf, params["w_up"])
+        h = F.silu(hg.float()).to(buf.dtype) * hu
+        return torch.bmm(h, params["w_down"])
 
 
 def moe_ffn_index(x, params, moe: MoEConfig):
@@ -181,7 +185,7 @@ def moe_ffn_sharded(x, params, moe: MoEConfig, plan, gather_mode="auto"):
                  shard's slots back;
       "auto":    "weights".
     In both: y all-reduced over the model axis and aux averaged over it."""
-    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    from torch.distributed.tensor import DTensor, Replicate
     info = plan.info
     mesh = info.mesh
     model_ax = info.model_axis
@@ -195,78 +199,70 @@ def moe_ffn_sharded(x, params, moe: MoEConfig, plan, gather_mode="auto"):
     mode = "weights" if gather_mode == "auto" else gather_mode
     if mode not in ("weights", "partial"):
         raise ValueError(f"unknown gather mode {gather_mode!r}")
-    whole = not isinstance(x, DTensor)
 
-    def local(t, spec):
-        pl = plan.placements_of(spec)
-        t = distribute_tensor(t, mesh, pl) if not isinstance(t, DTensor) else \
-            t.redistribute(mesh, pl)
-        return t.to_local()
+    def local(x_loc, w_router, w_gate, w_up, w_down):
+        if fsdp and mode == "weights":
+            w_gate = _all_gather(w_gate, mesh, gather_axes, 1)
+            w_up = _all_gather(w_up, mesh, gather_axes, 1)
+            w_down = _all_gather(w_down, mesh, gather_axes, 2)
+        B, S, D = x_loc.shape
+        T = B * S
+        E, k = moe.num_experts, moe.top_k
+        E_loc = w_gate.shape[0]
+        xt = x_loc.reshape(T, D)
+        probs = router_probs(xt, w_router)
+        gates, eidx = _topk_gates(probs, k)
+        aux = load_balance_loss(probs, eidx, E)
+        C = _capacity(T, moe)
 
-    x_spec = (d_axes, None, None)
-    x_loc = local(x, x_spec)
-    w_router = local(params["router"], (None, None))
-    w_gate = local(params["w_gate"], plan.spec("experts", "embed", "expert_mlp"))
-    w_up = local(params["w_up"], plan.spec("experts", "embed", "expert_mlp"))
-    w_down = local(params["w_down"], plan.spec("experts", "expert_mlp", "embed"))
+        e_flat = eidx.reshape(-1)
+        pos = _rank_within_expert(e_flat, E)
+        tok = torch.arange(T, device=xt.device).repeat_interleave(k)
+        e_lo = (mesh.get_local_rank(model_ax) if model_ax else 0) * E_loc
+        mine = (e_flat >= e_lo) & (e_flat < e_lo + E_loc) & (pos < C)
+        e_local = torch.where(mine, e_flat - e_lo, E_loc)          # E_loc: the drop row
+        c_slot = torch.clamp(pos, max=C - 1)
+        # index / gate buffers [E_loc, C]; sentinel token id T
+        tok_buf = torch.full((E_loc + 1, C), T, dtype=torch.long, device=xt.device)
+        tok_buf[e_local, c_slot] = torch.where(mine, tok, T)
+        gate_buf = torch.zeros((E_loc + 1, C), dtype=torch.float32, device=xt.device)
+        gate_buf[e_local, c_slot] = torch.where(mine, gates.reshape(-1), 0.0)
+        tok_buf, gate_buf = tok_buf[:E_loc], gate_buf[:E_loc]
 
-    if fsdp and mode == "weights":
-        w_gate = _all_gather(w_gate, mesh, gather_axes, 1)
-        w_up = _all_gather(w_up, mesh, gather_axes, 1)
-        w_down = _all_gather(w_down, mesh, gather_axes, 2)
-    B, S, D = x_loc.shape
-    T = B * S
-    E, k = moe.num_experts, moe.top_k
-    E_loc = w_gate.shape[0]
-    xt = x_loc.reshape(T, D)
-    probs = router_probs(xt, w_router)
-    gates, eidx = _topk_gates(probs, k)
-    aux = load_balance_loss(probs, eidx, E)
-    C = _capacity(T, moe)
+        xt_pad = torch.cat([xt, xt.new_zeros((1, D))], dim=0)
+        buf = xt_pad[tok_buf]                                      # [E_loc, C, D]
+        if fsdp and mode == "partial":
+            dz = info.data_size
+            d_idx = _axis_index(mesh, gather_axes)
+            d_blk = D // dz
+            tokens_sharded = d_axes is not None
+            buf_all = _all_gather(buf, mesh, gather_axes, 1) if tokens_sharded else buf
+            buf_sl = buf_all[:, :, d_idx * d_blk:(d_idx + 1) * d_blk]
+            with named_scope("experts"):
+                hg = torch.bmm(buf_sl.float(), w_gate.float())
+                hu = torch.bmm(buf_sl.float(), w_up.float())
+                hg, hu = _psum(hg, mesh, gather_axes), _psum(hu, mesh, gather_axes)
+                h = (F.silu(hg) * hu).to(buf.dtype)
+                out_all = _all_gather(torch.bmm(h, w_down), mesh, gather_axes, 2)   # [E,*,D]
+            out_buf = out_all[:, d_idx * C:(d_idx + 1) * C] if tokens_sharded else out_all
+        else:
+            out_buf = _expert_swiglu(buf, {"w_gate": w_gate, "w_up": w_up, "w_down": w_down})
+        contrib = (out_buf.float() * gate_buf[..., None]).to(x_loc.dtype)
+        y = x_loc.new_zeros((T + 1, D))
+        y.index_add_(0, tok_buf.reshape(-1), contrib.reshape(-1, D))
+        y = y[:T]
+        if model_ax:
+            y = _psum(y, mesh, (model_ax,))
+            aux = _psum(aux, mesh, (model_ax,)) / info.model_size
+        return y.reshape(B, S, D), aux
 
-    e_flat = eidx.reshape(-1)
-    pos = _rank_within_expert(e_flat, E)
-    tok = torch.arange(T, device=xt.device).repeat_interleave(k)
-    e_lo = (mesh.get_local_rank(model_ax) if model_ax else 0) * E_loc
-    mine = (e_flat >= e_lo) & (e_flat < e_lo + E_loc) & (pos < C)
-    e_local = torch.where(mine, e_flat - e_lo, E_loc)          # E_loc: the drop row
-    c_slot = torch.clamp(pos, max=C - 1)
-    # index / gate buffers [E_loc, C]; sentinel token id T
-    tok_buf = torch.full((E_loc + 1, C), T, dtype=torch.long, device=xt.device)
-    tok_buf[e_local, c_slot] = torch.where(mine, tok, T)
-    gate_buf = torch.zeros((E_loc + 1, C), dtype=torch.float32, device=xt.device)
-    gate_buf[e_local, c_slot] = torch.where(mine, gates.reshape(-1), 0.0)
-    tok_buf, gate_buf = tok_buf[:E_loc], gate_buf[:E_loc]
-
-    xt_pad = torch.cat([xt, xt.new_zeros((1, D))], dim=0)
-    buf = xt_pad[tok_buf]                                      # [E_loc, C, D]
-    if fsdp and mode == "partial":
-        dz = info.data_size
-        d_idx = _axis_index(mesh, gather_axes)
-        d_blk = D // dz
-        tokens_sharded = d_axes is not None
-        buf_all = _all_gather(buf, mesh, gather_axes, 1) if tokens_sharded else buf
-        buf_sl = buf_all[:, :, d_idx * d_blk:(d_idx + 1) * d_blk]
-        hg = torch.bmm(buf_sl.float(), w_gate.float())
-        hu = torch.bmm(buf_sl.float(), w_up.float())
-        hg, hu = _psum(hg, mesh, gather_axes), _psum(hu, mesh, gather_axes)
-        h = (F.silu(hg) * hu).to(buf.dtype)
-        out_all = _all_gather(torch.bmm(h, w_down), mesh, gather_axes, 2)   # [E,*,D]
-        out_buf = out_all[:, d_idx * C:(d_idx + 1) * C] if tokens_sharded else out_all
-    else:
-        out_buf = _expert_swiglu(buf, {"w_gate": w_gate, "w_up": w_up, "w_down": w_down})
-    contrib = (out_buf.float() * gate_buf[..., None]).to(x_loc.dtype)
-    y = x_loc.new_zeros((T + 1, D))
-    y.index_add_(0, tok_buf.reshape(-1), contrib.reshape(-1, D))
-    y = y[:T]
-    if model_ax:
-        y = _psum(y, mesh, (model_ax,))
-        aux = _psum(aux, mesh, (model_ax,)) / info.model_size
-    rep = [Replicate()] * mesh.ndim
-    y = DTensor.from_local(y.reshape(B, S, D), mesh, plan.placements_of(x_spec),
-                           run_check=False, shape=x.shape, stride=x.stride())
-    aux = DTensor.from_local(aux, mesh, rep, run_check=False)
-    if whole:
+    x_pl = plan.placements_of((d_axes, None, None))
+    w_in = plan.placements("experts", "embed", "expert_mlp")
+    w_out = plan.placements("experts", "expert_mlp", "embed")
+    rep = (Replicate(),) * mesh.ndim
+    y, aux = per_shard(local, (x_pl, rep, w_in, w_in, w_out), (x_pl, rep), mesh=mesh)(
+        x, params["router"], params["w_gate"], params["w_up"], params["w_down"])
+    if not isinstance(x, DTensor):
         return y.full_tensor(), aux.full_tensor()
     return y, aux
 

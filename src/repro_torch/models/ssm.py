@@ -13,10 +13,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.analysis.account import named_scope
+from repro_torch.core.scope import named_scope
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
 from repro_torch.models.layers import rms_norm
+from repro_torch.sharding.plan import per_shard
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
@@ -34,11 +35,18 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     the plain chunked scan with chunks of ``chunk`` rows; CUDA tensors take
     K2 (which tiles by its own chunk length), under autograd inside
     ``SSDScanFn``, whose backward differentiates the plain scan with chunks
-    of ``chunk`` rows; DTensors run shard by shard (``_ssd_per_shard``).
+    of ``chunk`` rows.  DTensors run shard by shard, as under JAX's
+    shard_map (the scan is independent per batch row and head): x may be
+    cut on batch (dim 0) and heads (dim 2), and the other inputs are brought
+    to the matching cuts (B and C whole over the heads' mesh axis, one
+    group).
     """
     from torch.distributed.tensor import DTensor
     if isinstance(x, DTensor):
-        return _ssd_per_shard(x, dt, A, B, C, chunk, h0)
+        pl, cut = x.placements, _cuts(x, B, 2)
+        return per_shard(lambda *a: ssd_chunked(*a[:5], chunk=chunk, h0=a[5]),
+                         (pl, pl, cut(None, 0), cut(0, None), cut(0, None), cut(0, 1)),
+                         (pl, cut(0, 1)))(x, dt, A, B, C, h0)
     with named_scope("ssd_core"):
         y, h = ssd_scan_hmajor(
             x.movedim(1, 2).contiguous(), dt.movedim(1, 2).contiguous(), A.float(),
@@ -47,12 +55,15 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
         return y.movedim(1, 2), h
 
 
-def _cuts(pl, head_dim_of_x):
-    """``cut(batch_dim, head_dim)``: the placements ``pl`` of a tensor cut on
-    batch (dim 0) and heads (dim ``head_dim_of_x``) moved to another tensor's
-    batch and head dims (None: replicated there)."""
+def _cuts(t, B, head_dim_of_t):
+    """``cut(batch_dim, head_dim)``: the placements of ``t``, a DTensor cut
+    on batch (dim 0) and heads (dim ``head_dim_of_t``), moved to another
+    tensor's batch and head dims (None: replicated there)."""
     from torch.distributed.tensor import Replicate, Shard
-    if not all(p.is_replicate() or (p.is_shard() and p.dim in (0, head_dim_of_x))
+    if B.shape[-2] != 1:
+        raise NotImplementedError("SSD on a mesh takes one B/C group (every config has one)")
+    pl = t.placements
+    if not all(p.is_replicate() or (p.is_shard() and p.dim in (0, head_dim_of_t))
                for p in pl):
         raise NotImplementedError(f"SSD on a tensor placed {pl}: want batch/head shards only")
 
@@ -63,58 +74,19 @@ def _cuts(pl, head_dim_of_x):
     return cut
 
 
-def _local(t, placements):
-    return None if t is None else t.redistribute(t.device_mesh, placements).to_local()
-
-
-def _ssd_per_shard(x, dt, A, B, C, chunk, h0):
-    """``ssd_chunked`` on DTensors, shard by shard (as under JAX's
-    shard_map: the scan is independent per batch row and head).  x may be
-    cut on batch (dim 0) and heads (dim 2); the other inputs are brought to
-    the matching cuts (B and C replicated over the heads' mesh axis, one
-    group)."""
-    from torch.distributed.tensor import DTensor
-    if B.shape[2] != 1:
-        raise NotImplementedError("SSD on a mesh takes one B/C group (every config has one)")
-    pl = x.placements
-    cut = _cuts(pl, 2)
-    y, h = ssd_chunked(_local(x, pl), _local(dt, pl), _local(A, cut(None, 0)),
-                       _local(B, cut(0, None)), _local(C, cut(0, None)), chunk=chunk,
-                       h0=_local(h0, cut(0, 1)))
-    mesh = x.device_mesh
-    # contiguous locals: the global strides DTensor keeps say contiguous
-    return (DTensor.from_local(y.contiguous(), mesh, pl, run_check=False, shape=x.shape,
-                               stride=x.stride()),
-            DTensor.from_local(h.contiguous(), mesh, cut(0, 1), run_check=False))
-
-
-def _decode_per_shard(h, x, dt, A, B, C):
-    """``ssd_decode_step`` on DTensors, shard by shard, cut as the state h
-    (batch dim 0, heads dim 1)."""
-    from torch.distributed.tensor import DTensor
-    if B.shape[1] != 1:
-        raise NotImplementedError("SSD on a mesh takes one B/C group (every config has one)")
-    pl = h.placements
-    cut = _cuts(pl, 1)
-    y, h_new = ssd_decode_step(_local(h, pl), _local(x, cut(0, 1)), _local(dt, cut(0, 1)),
-                               _local(A, cut(None, 0)), _local(B, cut(0, None)),
-                               _local(C, cut(0, None)))
-    mesh = h.device_mesh
-    return (DTensor.from_local(y.contiguous(), mesh, cut(0, 1), run_check=False,
-                               shape=x.shape, stride=x.stride()),
-            DTensor.from_local(h_new.contiguous(), mesh, pl, run_check=False, shape=h.shape,
-                               stride=h.stride()))
-
-
 def ssd_decode_step(h, x, dt, A, B, C):
     """One-token SSD update.
 
     h [b,H,P,N] f32; x [b,H,P]; dt [b,H]; A [H]; B,C [b,G,N].
-    returns (y [b,H,P] in x's dtype, h_new)
+    returns (y [b,H,P] in x's dtype, h_new).  DTensors run shard by shard,
+    cut as the state h (batch dim 0, heads dim 1).
     """
     from torch.distributed.tensor import DTensor
     if isinstance(h, DTensor):
-        return _decode_per_shard(h, x, dt, A, B, C)
+        pl, cut = h.placements, _cuts(h, B, 1)
+        return per_shard(ssd_decode_step,
+                         (pl, cut(0, 1), cut(0, 1), cut(None, 0), cut(0, None), cut(0, None)),
+                         (cut(0, 1), pl))(h, x, dt, A, B, C)
     H = h.shape[1]
     hg = H // B.shape[1]
     da = torch.exp(dt.float() * A[None])                          # [b,H]
@@ -138,9 +110,7 @@ def causal_conv(x, w, b):
 
         def chan(dim):
             return tuple(Shard(dim) if p.is_shard() and p.dim == 2 else Replicate() for p in pl)
-        y = causal_conv(_local(x, pl), _local(w, chan(1)), _local(b, chan(0)))
-        return DTensor.from_local(y.contiguous(), x.device_mesh, pl, run_check=False,
-                                  shape=x.shape, stride=x.stride())
+        return per_shard(causal_conv, (pl, chan(1), chan(0)), pl)(x, w, b)
     W, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
     out = 0

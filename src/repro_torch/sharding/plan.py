@@ -39,7 +39,30 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import AbstractMesh, make_abstract_mesh
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A device-less mesh: axis sizes and names only, which is all the
+    sharding plan's rules read (JAX's ``AbstractMesh``).  ``device_type``
+    names where a one-device mesh runs."""
+    axis_sizes: tuple
+    axis_names: tuple
+    device_type: str = "cpu"
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as JAX's ``mesh.shape``."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def make_abstract_mesh(shape, axes, device_type: str = "cpu") -> AbstractMesh:
+    return AbstractMesh(tuple(shape), tuple(axes), device_type)
+
 
 # replicated kv params bigger than this get padded+sharded instead
 _KV_REPLICATE_BYTES_LIMIT = 512 * 1024 * 1024
@@ -230,6 +253,37 @@ class ShardingPlan:
         sizes = self.info.shape
         return tuple(None if dim % math.prod(sizes[n] for n in _names(entry)) else entry
                      for dim, entry in zip(shape, spec))
+
+
+def per_shard(fn, in_placements, out_placements, mesh=None):
+    """``fn`` run on this rank's local shards, as JAX's ``shard_map`` runs a
+    function per shard.  Each argument is brought to its entry of
+    ``in_placements`` (a DTensor redistributed, a whole tensor distributed)
+    and handed over as its local tensor; an entry of None passes the
+    argument as it is (a number, None).  Each output becomes a DTensor
+    placed by ``out_placements`` (one tuple of placements, or one per output
+    when ``fn`` returns a tuple) on the arguments' mesh, or ``mesh``.  The
+    shards are even (``ShardingPlan.divisible``), so each output's global
+    shape follows from its local one."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def run(*args):
+        m = mesh or next(a.device_mesh for a in args if isinstance(a, DTensor))
+
+        def local(a, pl):
+            if pl is None or a is None:
+                return a
+            a = a.redistribute(m, pl) if isinstance(a, DTensor) else distribute_tensor(a, m, pl)
+            return a.to_local()
+
+        def wrap(t, pl):
+            return DTensor.from_local(t.contiguous(), m, pl, run_check=False)
+
+        out = fn(*(local(a, pl) for a, pl in zip(args, in_placements, strict=True)))
+        if isinstance(out, tuple):
+            return tuple(wrap(t, pl) for t, pl in zip(out, out_placements, strict=True))
+        return wrap(out, out_placements)
+    return run
 
 
 def constrain(x, placements):

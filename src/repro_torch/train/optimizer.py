@@ -1,5 +1,4 @@
-"""AdamW with fp32 master weights: the counterpart of ``repro.train.optimizer``
-on one device.
+"""AdamW with fp32 master weights: the counterpart of ``repro.train.optimizer``.
 
 The schedule is linear warmup -> cosine decay; gradients are clipped by
 their global norm (fp32).  The state (m, v, master) is fp32, or with
@@ -8,24 +7,23 @@ their global norm (fp32).  The state (m, v, master) is fp32, or with
 float32 operations, so on the same inputs the two agree to float32
 rounding.
 
+State and parameter trees are nests of tensors (``tree``), in the JAX
+package's layout.  ``apply_updates_`` updates them in place, a slice of a
+leaf at a time (every tree leaf contiguous), so that a step needs few
+temporaries beside the state.  ``apply_updates`` keeps the JAX package's
+functional form (inputs untouched, new trees returned) for the tests that
+hold the two side by side; the train step calls ``apply_updates_``.
+
 ZeRO-1: on a mesh, the fp32 state (m, v, master) is sharded over the
 *data* axes in addition to the param's model-axis sharding: for each param
 the first dimension that is still replicated and divides the data-axis size
-(``_zero1_logical``, ``opt_state_specs``).  ``apply_updates_sharded_`` runs
-the update on DTensors: the gradient (already all-reduced over the data
-axes) is cut to each state shard, the shard is updated, and the new master
-is gathered back to the param's placement, where XLA, in the JAX package,
-reduce-scatters into the state shards and all-gathers the params.  The int8
-state runs on one device only (its blocks run over the whole flattened
-leaf).
-
-State and parameter trees are nested dicts of tensors (``tree``), in the
-JAX package's layout.  ``apply_updates_`` updates them in place, a slice
-of a leaf at a time (every tree leaf contiguous), so that a step needs
-few temporaries beside the state.  ``apply_updates`` keeps the JAX
-package's functional form (inputs untouched, new trees returned) for the
-tests that hold the two side by side; the train step calls
-``apply_updates_``.
+(``_zero1_logical``, ``opt_state_specs``).  On DTensor leaves
+``apply_updates_`` runs the same slice update on each rank's shard: the
+gradient (already all-reduced over the data axes) and the param are cut to
+the state's shard, and the new param is gathered back to its placement,
+where XLA, in the JAX package, reduce-scatters into the state shards and
+all-gathers the params.  The int8 state runs on one device only (its
+blocks run over the whole flattened leaf).
 """
 from __future__ import annotations
 
@@ -34,7 +32,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models.layers import ParamSpec, map_specs
+from repro_torch.models.layers import ParamSpec
 from repro_torch.train.quantized_state import BLOCK, n_blocks, q8_decode, q8_encode
 from repro_torch.train.tree import items, tree_map
 
@@ -105,14 +103,14 @@ def opt_state_specs(param_specs, plan, cfg: OptimizerConfig):
 
     mv_state = q8_state if cfg.state_bits == 8 else f32_state
     state = {
-        "m": map_specs(mv_state, param_specs),
-        "v": map_specs(mv_state, param_specs),
+        "m": tree_map(mv_state, param_specs),
+        "v": tree_map(mv_state, param_specs),
         "step": ParamSpec((), (), dtype="int32", init="zeros"),
     }
     if cfg.use_master:
         def master(s: ParamSpec):
             return ParamSpec(s.shape, _zero1_logical(s, plan), dtype="float32")
-        state["master"] = map_specs(master, param_specs)
+        state["master"] = tree_map(master, param_specs)
     return state
 
 
@@ -132,68 +130,106 @@ def init_opt_state(params, cfg: OptimizerConfig):
     return state
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a DTensor's whole value (a 0-d sum, a step)."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
 def global_norm(tree) -> torch.Tensor:
     total = 0
     for _, leaf in items(tree):
-        total = total + torch.sum(torch.square(leaf.float()))
+        total = total + _whole(torch.sum(torch.square(leaf.float())))
     return torch.sqrt(total)
+
+
+def _update_slice(p, g, m, v, master, m_scale, v_scale, *, cfg, lr, clip, bc1, bc2):
+    """AdamW on one slice of a leaf, in place: ``m``, ``v``, ``master`` and
+    ``p`` are overwritten (q8 state comes as codes with the scales of the
+    slice's blocks)."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    q8 = m_scale is not None
+    if q8:
+        m_f = q8_decode(m, m_scale)
+        # v is stored as sqrt(v): int8 absmax quantization in the linear
+        # domain zeroes small second moments and destabilizes Adam
+        v_f = torch.square(q8_decode(v, v_scale))
+    else:
+        m_f, v_f = m, v
+    g = g.float() * clip
+    m_f = b1 * m_f + (1 - b1) * g
+    v_f = b2 * v_f + (1 - b2) * torch.square(g)
+    mhat, vhat = m_f / bc1, v_f / bc2
+    base = master if master is not None else p.float()
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * base
+    new_master = base - lr * delta
+    if q8:
+        for codes, scale, value in ((m, m_scale, m_f), (v, v_scale, torch.sqrt(v_f))):
+            q, sc = q8_encode(value)
+            codes.copy_(q)
+            scale.copy_(sc)
+    else:
+        m.copy_(m_f)
+        v.copy_(v_f)
+    if master is not None:
+        master.copy_(new_master)
+    p.copy_(new_master.to(p.dtype))
+
+
+def _update_leaf(p, g, m, v, master, **hyper):
+    """``_update_slice`` over a leaf, ``_SLICE`` elements at a time (plain
+    tensors, contiguous but for ``g``)."""
+    q8 = isinstance(m, dict)
+    flat = [t.reshape(-1) if t is g else t.view(-1) if t is not None else None
+            for t in (p, g, m["q"] if q8 else m, v["q"] if q8 else v, master)]
+    for s in range(0, p.numel(), _SLICE):
+        e = min(s + _SLICE, p.numel())
+        blocks = slice(s // BLOCK, -(-e // BLOCK))
+        _update_slice(*(t if t is None else t[s:e] for t in flat),
+                      m["scale"][blocks] if q8 else None, v["scale"][blocks] if q8 else None,
+                      **hyper)
+
+
+def _update_sharded(p, g, m, v, master, **hyper):
+    """``_update_leaf`` on DTensors, on this rank's ZeRO-1 shard: the
+    gradient (replicated over the data axes) and the param are cut to the
+    state's placements, the shard is updated, and the new param is
+    gathered back to its own placement, where XLA, in the JAX package,
+    reduce-scatters into the state shards and all-gathers the params."""
+    if isinstance(m, dict):
+        raise NotImplementedError("the int8 optimizer state runs on one device only")
+    mesh, pl = m.device_mesh, m.placements
+    local = p.redistribute(mesh, pl)
+    _update_leaf(local.to_local(), g.redistribute(mesh, pl).to_local(), m.to_local(),
+                 v.to_local(), None if master is None else master.to_local(), **hyper)
+    if tuple(pl) != tuple(p.placements):
+        p.copy_(local.redistribute(p.device_mesh, p.placements))
 
 
 @torch.no_grad()
 def apply_updates_(params, grads, opt_state, cfg: OptimizerConfig):
     """One AdamW step in place: ``params`` (any float type), ``opt_state``
     and its step counter are overwritten; ``grads`` (fp32, or cast here)
-    are read.  Returns the metrics {"lr", "grad_norm"}."""
+    are read.  The leaves are plain tensors, or on a mesh DTensors: params
+    placed by the plan, grads in the params' placements, the state in the
+    ZeRO-1 placements of ``opt_state_specs`` (f32 only).  Returns the
+    metrics {"lr", "grad_norm"}."""
     step = opt_state["step"] + 1
-    lr = schedule(step, cfg)
+    stepf = _whole(step).float()
+    lr = schedule(stepf, cfg)
     gnorm = global_norm(grads)
     clip = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
             if cfg.clip_norm > 0 else 1.0)
-    b1, b2 = cfg.beta1, cfg.beta2
-    stepf = step.float()
-    bc1 = 1 - torch.pow(b1, stepf)
-    bc2 = 1 - torch.pow(b2, stepf)
+    hyper = dict(cfg=cfg, lr=lr, clip=clip, bc1=1 - torch.pow(cfg.beta1, stepf),
+                 bc2=1 - torch.pow(cfg.beta2, stepf))
     masters = opt_state.get("master")
 
-    def upd_slice(p, g, m, v, master, m_scale, v_scale):
-        """One slice of a leaf; q8 state comes as codes with the scales of
-        the slice's blocks."""
-        q8 = m_scale is not None
-        if q8:
-            m_f = q8_decode(m, m_scale)
-            # v is stored as sqrt(v): int8 absmax quantization in the linear
-            # domain zeroes small second moments and destabilizes Adam
-            v_f = torch.square(q8_decode(v, v_scale))
-        else:
-            m_f, v_f = m, v
-        g = g.float() * clip
-        m_f = b1 * m_f + (1 - b1) * g
-        v_f = b2 * v_f + (1 - b2) * torch.square(g)
-        mhat, vhat = m_f / bc1, v_f / bc2
-        base = master if master is not None else p.float()
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * base
-        new_master = base - lr * delta
-        if q8:
-            for codes, scale, value in ((m, m_scale, m_f), (v, v_scale, torch.sqrt(v_f))):
-                q, sc = q8_encode(value)
-                codes.copy_(q)
-                scale.copy_(sc)
-        else:
-            m.copy_(m_f)
-            v.copy_(v_f)
-        if master is not None:
-            master.copy_(new_master)
-        p.copy_(new_master.to(p.dtype))
-
     def upd(p, g, m, v, master):
-        q8 = isinstance(m, dict)
-        flat = [t.view(-1) if t is not None else None
-                for t in (p, g, m["q"] if q8 else m, v["q"] if q8 else v, master)]
-        for s in range(0, p.numel(), _SLICE):
-            e = min(s + _SLICE, p.numel())
-            blocks = slice(s // BLOCK, -(-e // BLOCK))
-            upd_slice(*(t if t is None else t[s:e] for t in flat),
-                      m["scale"][blocks] if q8 else None, v["scale"][blocks] if q8 else None)
+        (_update_sharded if _is_dtensor(p) else _update_leaf)(p, g, m, v, master, **hyper)
 
     tree_map(upd, params, grads, opt_state["m"], opt_state["v"],
              masters if masters is not None else tree_map(lambda p: None, params))
@@ -201,71 +237,12 @@ def apply_updates_(params, grads, opt_state, cfg: OptimizerConfig):
     return {"lr": lr, "grad_norm": gnorm}
 
 
-def _clone(tree):
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    return tree.detach().clone()
-
-
 def apply_updates(params, grads, opt_state, cfg: OptimizerConfig):
     """One AdamW step, functional as the JAX package's: returns
     (new_params, new_opt_state, metrics) and leaves its inputs untouched.
     It clones both trees, so it is the parity tests' form; training steps
     in place with ``apply_updates_``."""
-    params, opt_state = _clone(params), _clone(opt_state)
+    params, opt_state = (tree_map(lambda t: t.detach().clone(), tree)
+                         for tree in (params, opt_state))
     metrics = apply_updates_(params, grads, opt_state, cfg)
     return params, opt_state, metrics
-
-
-def leaves(tree):
-    """The leaves of a nest of dicts and lists, in order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in leaves(t)]
-    return [tree]
-
-
-@torch.no_grad()
-def apply_updates_sharded_(params, grads, opt_state, cfg: OptimizerConfig):
-    """One AdamW step in place on DTensors (nests of dicts and lists with
-    the same structure): ``params`` placed by the plan, ``grads`` fp32 in the
-    params' placements, ``opt_state`` fp32 with the ZeRO-1 placements of
-    ``opt_state_specs``.  Returns the metrics {"lr", "grad_norm"}."""
-    if cfg.state_bits != 32:
-        raise NotImplementedError("the int8 optimizer state runs on one device only")
-    step = opt_state["step"] + 1                     # a replicated DTensor
-    stepf = step.full_tensor().float()
-    lr = schedule(stepf, cfg)
-    gs = leaves(grads)
-    total = 0
-    for g in gs:
-        total = total + torch.sum(torch.square(g)).full_tensor()
-    gnorm = torch.sqrt(total)
-    clip = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-            if cfg.clip_norm > 0 else 1.0)
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1 - torch.pow(b1, stepf)
-    bc2 = 1 - torch.pow(b2, stepf)
-    masters = (leaves(opt_state["master"]) if cfg.use_master
-               else [None] * len(gs))
-    for p, g, m, v, master in zip(leaves(params), gs, leaves(opt_state["m"]),
-                                  leaves(opt_state["v"]), masters):
-        # the gradient cut to the state's shards (no data moves: it is
-        # replicated over the data axes)
-        g = g.redistribute(m.device_mesh, m.placements).to_local() * clip
-        m_l, v_l = m.to_local(), v.to_local()
-        m_l.mul_(b1).add_((1 - b1) * g)
-        v_l.mul_(b2).add_((1 - b2) * torch.square(g))
-        base = (master.to_local() if master is not None else
-                p.redistribute(m.device_mesh, m.placements).to_local().float())
-        delta = (m_l / bc1) / (torch.sqrt(v_l / bc2) + cfg.eps) + cfg.weight_decay * base
-        new_master = base - lr * delta
-        if master is not None:
-            master.to_local().copy_(new_master)
-        full = type(m).from_local(new_master, m.device_mesh, m.placements, run_check=False,
-                                  shape=m.shape, stride=m.stride())
-        # the ZeRO-1 gather: the updated shards back to the param's placement
-        p.copy_(full.redistribute(p.device_mesh, p.placements).to(p.dtype))
-    opt_state["step"] = step
-    return {"lr": lr, "grad_norm": gnorm}

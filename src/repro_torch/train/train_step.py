@@ -16,7 +16,7 @@ parameters are DTensors, one per layer, and ``make_sharded_train_step``
 takes the state ``{"params": lm's parameters, "opt": the ZeRO-1 state of
 train_state_specs}``: each microbatch's gradients (partial sums over the
 data axes) are all-reduced over the data axes as they are added to the fp32
-sums, then ``optimizer.apply_updates_sharded_`` updates the state shards.
+sums, then ``optimizer.apply_updates_`` updates the state shards.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from repro_torch.models.layers import torch_dtype
 from repro_torch.models.lm import LM
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates_, init_opt_state
-from repro_torch.train.tree import items, unflatten
+from repro_torch.train.tree import items, leaves, tree_map, unflatten
 
 
 def make_loss_fn(lm: LM):
@@ -128,13 +128,9 @@ def train_state_specs(lm: LM, ocfg: OptimizerConfig):
 def param_tree(lm: LM):
     """The model's parameters in the nest of ``lm.param_specs()`` (per-layer
     lists), leaves the ``nn.Parameter`` objects themselves."""
-    def walk(specs, prefix):
-        if isinstance(specs, dict):
-            return {k: walk(specs[k], prefix + [k]) for k in specs}
-        if isinstance(specs, list):
-            return [walk(s, prefix + [str(i)]) for i, s in enumerate(specs)]
-        return lm.get_parameter(".".join(prefix))
-    return walk(lm.param_specs(), [])
+    specs = lm.param_specs()
+    it = iter(lm.get_parameter(key.replace("/", ".")) for key, _ in items(specs))
+    return tree_map(lambda _: next(it), specs)
 
 
 def make_sharded_train_step(lm: LM, ocfg: OptimizerConfig, *, grad_dtype: str = "bfloat16"):
@@ -146,7 +142,7 @@ def make_sharded_train_step(lm: LM, ocfg: OptimizerConfig, *, grad_dtype: str = 
 
     def train_step(state, batch):
         params = state["params"]
-        plist = opt_mod.leaves(params)
+        plist = leaves(params)
         with lm.spmd():
             gsum = [torch.zeros_like(p, dtype=torch.float32) for p in plist]
             lsum = 0.0
@@ -166,16 +162,10 @@ def make_sharded_train_step(lm: LM, ocfg: OptimizerConfig, *, grad_dtype: str = 
             with torch.no_grad():
                 for acc in gsum:
                     acc.div_(accum)
-            grads = _like(params, iter(gsum))
-            metrics = opt_mod.apply_updates_sharded_(params, grads, state["opt"], ocfg)
+            it = iter(gsum)
+            grads = tree_map(lambda _: next(it), params)
+            metrics = apply_updates_(params, grads, state["opt"], ocfg)
         return state, dict(metrics, loss=lsum / accum)
 
     return train_step
 
-
-def _like(tree, it):
-    if isinstance(tree, dict):
-        return {k: _like(tree[k], it) for k in sorted(tree)}
-    if isinstance(tree, list):
-        return [_like(t, it) for t in tree]
-    return next(it)

@@ -1,5 +1,7 @@
-"""Nested dicts of tensors, walked as JAX walks a pytree of dicts: keys in
-sorted order, a leaf named by its key path (``"blocks/attn/wq"``)."""
+"""Nests of dicts, lists and tuples, walked as JAX walks a pytree: dict keys
+in sorted order, list and tuple items in order, a leaf named by its key
+path (``"blocks/attn/wq"``, ``"blocks/0/attn/wq"``).  Anything else (a
+tensor, a ``ParamSpec``, None) is a leaf."""
 from __future__ import annotations
 
 
@@ -7,7 +9,14 @@ def items(tree, prefix=""):
     """[(key path, leaf)] in JAX's flattening order."""
     if isinstance(tree, dict):
         return [kv for k in sorted(tree) for kv in items(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, t in enumerate(tree) for kv in items(t, f"{prefix}{i}/")]
     return [(prefix[:-1], tree)]
+
+
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in JAX's flattening order."""
+    return [leaf for _, leaf in items(tree)]
 
 
 def tree_map(fn, tree, *rest):
@@ -16,6 +25,8 @@ def tree_map(fn, tree, *rest):
     ``flatten_up_to`` allows)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 

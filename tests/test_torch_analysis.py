@@ -8,7 +8,7 @@ each matmul as it is dispatched.  The collective and sharded cases run on a
 fake process group in a subprocess (a process group is global to its
 process).  The tables are held to JAX's on a committed dry-run JSONL
 (``tests/data/jax_dryrun_records.jsonl``: ``python -m repro.launch.dryrun``
-on five cells of the 16x16 mesh).
+on six cells of the 16x16 mesh).
 """
 import dataclasses
 import json
@@ -30,7 +30,8 @@ from repro.configs.base import SHAPES as JAX_SHAPES  # noqa: E402
 from repro.launch.mesh import make_abstract_mesh as jax_abstract_mesh  # noqa: E402
 from repro.sharding.plan import make_plan as jax_make_plan  # noqa: E402
 from repro_torch.analysis import roofline  # noqa: E402
-from repro_torch.analysis.account import Account, StepAccount, account, named_scope  # noqa: E402
+from repro_torch.analysis.account import Account, StepAccount, account  # noqa: E402
+from repro_torch.core.scope import named_scope  # noqa: E402
 from repro_torch.analysis.variants import adjusted_memory_term  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import SHAPES  # noqa: E402

@@ -26,6 +26,11 @@
       it to 4 and gives each device 1 sequence; the port keeps a dim that
       does not divide its axes replicated (``ShardingPlan.divisible``), so
       each device runs both: exactly twice JAX's FLOPs.
+* Per-device FLOPs of phi3.5-moe-42b-a6.6b at full width on 16x16
+  against JAX's record: train_4k equal (the experts' products recomputed
+  under "dots" as JAX recomputes them, and each shard's kv head projected
+  once for its two q heads, as XLA splits the product); decode_32k above
+  JAX's by what the docstring of ``PHI_DECODE_DELTA`` derives.
 """
 import json
 import os
@@ -78,6 +83,33 @@ def test_cli_writes_a_record_in_jax_format(tmp_path):
     # Python int (JAX's a 4-byte argument)
     assert rec["memory_analysis"]["argument_bytes"] - \
         jrec["memory_analysis"]["argument_bytes"] == 8 * 8 - (8 * 4 + 4)
+
+
+# port FLOPs - JAX FLOPs for phi3.5-moe decode_32k on 16x16.  Its 8 kv
+# heads stay replicated over the model axis (8 does not divide 16; 512 MiB
+# of replicated kv weights is not over the limit), and under FSDP the kv
+# weights' embed dim is cut over the data axes.  XLA splits the kv
+# projections' contraction over the model axis (each device [8, 256] @
+# [256, 1024], then an all-reduce); DTensor runs each whole on every model
+# shard (its [128, 256] @ [256, 1024] is [8, 4096] @ [4096, 1024] in
+# FLOPs).  Per layer, for k and v, with 8 tokens per device:
+L_PHI, T_PHI, D_PHI, KV_PHI, M_PHI = 32, 8, 4096, 8 * 128, 16
+PHI_DECODE_DELTA = L_PHI * 2 * (2 * T_PHI * D_PHI * KV_PHI
+                                - 2 * T_PHI * (D_PHI // M_PHI) * KV_PHI)
+
+
+@pytest.mark.parametrize("shape,delta", [("train_4k", 0), ("decode_32k", PHI_DECODE_DELTA)])
+def test_phi35_full_width_flops_match_jax(tmp_path, shape, delta):
+    out = tmp_path / "dry.jsonl"
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          "phi3.5-moe-42b-a6.6b", "--shape", shape, "--out", str(out)],
+                         env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+                         text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-3000:]
+    (rec,) = [json.loads(line) for line in out.read_text().splitlines()]
+    jrec = _jax_record("phi3.5-moe-42b-a6.6b", shape)
+    assert rec["plan"] == jrec["plan"] and rec["accum_steps"] == jrec["accum_steps"]
+    assert rec["roofline"]["hlo_flops"] - jrec["roofline"]["hlo_flops"] == delta
 
 
 def test_long_context_on_full_attention_is_skipped_with_jax_reason():

@@ -124,7 +124,7 @@ import torch
 from torch.distributed.tensor import distribute_tensor
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import fake_process_group, make_mesh
-from repro_torch.models.layers import map_specs
+from repro_torch.train.tree import tree_map
 from repro_torch.models.lm import LM
 from repro_torch.sharding.plan import make_plan
 from repro_torch.train.data import shard_batch
@@ -135,7 +135,7 @@ with fake_process_group(256):
         plan = make_plan(get_config(arch), mesh)
         lm = LM(plan.cfg, plan, device="meta")
         shapes = []
-        map_specs(lambda s: shapes.append([list(s.shape), list(s.logical), list(
+        tree_map(lambda s: shapes.append([list(s.shape), list(s.logical), list(
             distribute_tensor(torch.empty(s.shape, device="meta"), mesh,
                               plan.placements(*s.logical)).to_local().shape)]),
                   lm.param_specs())
