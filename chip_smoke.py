@@ -118,7 +118,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    same model 2 steps with int8 optimizer state: the peak memory drops by
    the int8 saving of m and v within 20%, and the step-2 loss is within
    1e-2 of (a)'s; (b) mamba2-1.3b at full width (48 layers) as (a): K2
-   "tc" once per layer, microbatch and remat recompute (384 a step).  For
+   "tc" once per layer and microbatch (192 a step: remat "dots" keeps its
+   outputs, and ``SSDScanFn``'s backward reruns the plain scan).  For
    (a) and (b) each step's loss, lr, grad_norm and seconds, the warm step
    time (steps 2-4), tokens/s, peak GB and the share of the dense bf16
    peak that 6 N tokens per step is, then one microbatch's forward and
@@ -169,9 +170,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    started after the last timed phase (so that no host time above is
    measured beside them) and each given ``DRYRUN_TIMEOUT_S``: internlm2-1.8b and
    phi3.5-moe-42b-a6.6b at train_4k and decode_32k on 16x16, internlm2-1.8b
-   train_4k on 2x16x16 and mamba2-1.3b prefill_32k on 16x16; each record
-   ok with FLOPs > 0, an all-reduce among the train cells' collectives and
-   the plan fields of JAX's ``make_plan``.  The ``cells`` and ``dryrun``
+   train_4k on 2x16x16, mamba2-1.3b prefill_32k, phi3.5-moe-42b-a6.6b,
+   jamba-1.5-large-398b and internlm2-1.8b prefill_32k, and mamba2 and
+   jamba train_4k in one microbatch, on 16x16; each record ok with its
+   per-device FLOPs equal to
+   JAX's record (``tests/data/jax_dryrun_records.jsonl``) plus the
+   difference ``analysis.parity`` derives (the SSD's K2 and plain-scan
+   backward), an all-reduce among the train cells' collectives, the
+   decode cells' collectives within twice JAX's, and the plan fields of
+   JAX's ``make_plan``.  The ``cells`` and ``dryrun``
    JSON lines give each cell's numbers; records and logs are in
    ``build/chip_smoke_dryrun/``.
 
@@ -1625,8 +1632,9 @@ def run_train(name, ocfg=None, steps=TRAIN_STEPS, after=None):
     random bf16 weights, with the optimizer config its flags give unless
     ``ocfg`` replaces it; the steps' losses, rates and times, the peak
     memory and the kernel launches (K1 none: training takes the chunked
-    attention at 4,096 positions; K2 once per Mamba-2 layer, microbatch and
-    checkpointed recompute, "tc").  ``after(res)`` runs on the trained
+    attention at 4,096 positions; K2 "tc" once per Mamba-2 layer and
+    microbatch, and once more under remat "full", whose recompute runs it
+    again).  ``after(res)`` runs on the trained
     result and its dict joins the line.  Frees the model before
     returning."""
     import torch
@@ -1636,11 +1644,11 @@ def run_train(name, ocfg=None, steps=TRAIN_STEPS, after=None):
     res, counts, by_variant, peak_gb = _train_counted(
         ["--arch", arch, "--steps", str(steps), *TRAIN_ARGS], ocfg=ocfg)
     accum = 4
-    per_layer = 2 if cfg.remat != "none" else 1     # a checkpointed layer runs twice
+    per_layer = 2 if cfg.remat == "full" else 1     # "dots" keeps K2's outputs
     want_k2 = cfg.num_layers * accum * per_layer * steps if cfg.family == "ssm" else 0
     if counts["K1"] != 0 or counts["K2"] != want_k2 or by_variant["K2"]["tc"] != want_k2:
         fail(f"{arch} train: launches {counts} {by_variant}, want K1 0 and K2 {want_k2} "
-             "(tc), one per Mamba-2 layer, microbatch and recompute")
+             "(tc), one per Mamba-2 layer and microbatch")
     losses = [s["loss"] for s in res.steps]
     if len(res.steps) != steps or not all(math.isfinite(s["loss"]) and math.isfinite(
             s["grad_norm"]) for s in res.steps):
@@ -1715,9 +1723,9 @@ def check_train_grads():
         wrappers = _reset_launches()
         loss, grads = _grads_of(lm, batch)
         r["k2_launches"] = dict(wrappers["K2"].launches_by_variant)
-        if cfg.family == "ssm" and r["k2_launches"] != {"tc": 0, "fma": 2}:
-            fail(f"{arch} 1 layer f32 step: K2 launches {r['k2_launches']}, want fma 2 "
-                 "(forward and recompute)")
+        if cfg.family == "ssm" and r["k2_launches"] != {"tc": 0, "fma": 1}:
+            fail(f"{arch} 1 layer f32 step: K2 launches {r['k2_launches']}, want fma 1 "
+                 "(the forward: remat \"dots\" keeps K2's outputs)")
         zero = [k for k, g in grads.items() if not bool(g.abs().max() > 0)]
         if zero:
             fail(f"{arch} 1 layer: zero gradient in {zero}")
@@ -1752,7 +1760,7 @@ def check_train_grads():
             lm_bf.requires_grad_(True)
             wrappers = _reset_launches()
             loss_bf, grads_bf = _grads_of(lm_bf, batch, "bfloat16")
-            if wrappers["K2"].launches_by_variant != {"tc": 2, "fma": 0}:
+            if wrappers["K2"].launches_by_variant != {"tc": 1, "fma": 0}:
                 fail(f"{arch} bf16 step: K2 launches {wrappers['K2'].launches_by_variant}")
             rel = {k: v * BF16_GRAD_TOL for k, v in
                    _grad_shares(grads_bf, grads, BF16_GRAD_TOL).items()}
@@ -2302,20 +2310,37 @@ CELL_SHAPES = [
 # (b) the host-only dry run, `python -m repro_torch.launch.dryrun` per cell
 # (arch, shape, multi-pod), each in a process of its own, and the plan fields
 # that JAX's make_plan gives on its mesh (tests/test_torch_sharding_plan.py
-# holds the port's plan to JAX's for every arch and mesh)
+# holds the port's plan to JAX's for every arch and mesh).  The last five
+# cells are the ones the sharding repairs changed most: the kv projection
+# of a cache-emitting prefill (phi3.5-moe's raised before), the B/C cut and
+# the SSD's train steps, these in one microbatch (``--accum 1``: the same
+# per-device FLOPs in JAX's records, traced 8 times faster).
 DRYRUN_CELLS = [("internlm2-1.8b", "train_4k", False), ("internlm2-1.8b", "decode_32k", False),
                 ("phi3.5-moe-42b-a6.6b", "train_4k", False),
                 ("phi3.5-moe-42b-a6.6b", "decode_32k", False),
-                ("internlm2-1.8b", "train_4k", True), ("mamba2-1.3b", "prefill_32k", False)]
+                ("internlm2-1.8b", "train_4k", True), ("mamba2-1.3b", "prefill_32k", False),
+                ("phi3.5-moe-42b-a6.6b", "prefill_32k", False),
+                ("jamba-1.5-large-398b", "prefill_32k", False),
+                ("mamba2-1.3b", "train_4k", False, 1),
+                ("jamba-1.5-large-398b", "train_4k", False, 1),
+                ("internlm2-1.8b", "prefill_32k", False)]
 DRYRUN_PLANS = {
     "internlm2-1.8b": dict(H=16, K=8, V=94208, kv_sharded=False, head_pad_overhead=0.0),
     "phi3.5-moe-42b-a6.6b": dict(H=32, K=8, V=32768, kv_sharded=False, head_pad_overhead=0.0),
     "mamba2-1.3b": dict(H=0, K=0, V=51200, kv_sharded=False, head_pad_overhead=0.0),
+    "jamba-1.5-large-398b": dict(H=64, K=8, V=65536, kv_sharded=False, head_pad_overhead=0.0),
 }
+# JAX's records of these cells, made by its own dry run on the CPU
+# (tests/data/jax_dryrun_records.jsonl); each cell's per-device FLOPs must
+# equal JAX's but for what analysis.parity derives, and the decode cell's
+# collectives stay within twice JAX's
+JAX_RECORDS = ROOT / "tests" / "data" / "jax_dryrun_records.jsonl"
+DECODE_COLLECTIVES_X = 2
 
 
 # seconds each dry-run process may take (the slowest, phi3.5-moe train_4k
-# with 8 microbatches, took 86 s beside phase 12)
+# with 8 microbatches, took 68-97 s beside the others; jamba train_4k in one
+# microbatch 53-61 s beside the others on the card's 8-core host)
 DRYRUN_TIMEOUT_S = 600
 
 
@@ -2330,20 +2355,43 @@ def start_dryrun():
     out.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     procs = []
-    for i, (arch, shape, multi_pod) in enumerate(DRYRUN_CELLS):
+    for i, (arch, shape, multi_pod, *accum) in enumerate(DRYRUN_CELLS):
         argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
                 "--shape", shape, "--out", str(out / f"{i}.jsonl")] + (
-                    ["--multi-pod"] if multi_pod else [])
+                    ["--multi-pod"] if multi_pod else []) + (
+                    ["--accum", str(accum[0])] if accum else [])
         with open(out / f"{i}.log", "w") as log_file:
             procs.append(subprocess.Popen(argv, env=env, cwd=str(ROOT), stdout=log_file,
                                           stderr=subprocess.STDOUT))
     return {"procs": procs, "t0": time.perf_counter()}
 
 
+def _jax_dryrun_record(arch, shape, mesh, accum):
+    with open(JAX_RECORDS) as f:
+        for line in f:
+            r = json.loads(line)
+            if (r["arch"], r["shape"], r["mesh"], r.get("accum_steps")) == (arch, shape, mesh, accum):
+                return r
+    fail(f"no JAX record of {arch} x {shape} x {mesh} ({accum} microbatches) in {JAX_RECORDS}")
+
+
+def _parity_delta(arch, shape, multi_pod, accum):
+    """analysis.parity's port-minus-JAX FLOPs of a full-width cell."""
+    from repro_torch.analysis.parity import cell_delta
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.sharding.plan import make_abstract_mesh, make_plan
+    cfg = get_config(arch)
+    plan = make_plan(cfg, make_abstract_mesh(*production_mesh_shape(multi_pod)))
+    return cell_delta(cfg, SHAPES[shape], plan, accum or 1)
+
+
 def finish_dryrun(state):
-    """Phase 14 (b): every cell's record must be ok with FLOPs > 0, the
-    data-parallel train cells must all-reduce, and the plan fields must be
-    JAX's.  Returns the ``dryrun`` line's body."""
+    """Phase 14 (b): every cell's record must be ok, its per-device FLOPs
+    JAX's record's plus ``analysis.parity``'s derived difference, the
+    data-parallel train cells must all-reduce, the decode cell's
+    collectives stay within ``DECODE_COLLECTIVES_X`` of JAX's, and the plan
+    fields must be JAX's.  Returns the ``dryrun`` line's body."""
     try:
         for proc in state["procs"]:
             proc.wait(timeout=max(DRYRUN_TIMEOUT_S - (time.perf_counter() - state["t0"]), 1))
@@ -2355,7 +2403,7 @@ def finish_dryrun(state):
             proc.wait()
     out = ROOT / "build" / "chip_smoke_dryrun"
     cells = []
-    for i, (arch, shape, multi_pod) in enumerate(DRYRUN_CELLS):
+    for i, (arch, shape, multi_pod, *accum) in enumerate(DRYRUN_CELLS):
         path = out / f"{i}.jsonl"
         if not path.is_file():
             fail(f"dry run {arch} x {shape}: no record; log: "
@@ -2365,8 +2413,15 @@ def finish_dryrun(state):
             fail(f"dry run {arch} x {shape} multi_pod={multi_pod}: {rec.get('error')}\n"
                  f"{rec.get('traceback', '')}")
         t = rec["roofline"]
-        if not t["hlo_flops"] > 0:
-            fail(f"dry run {arch} x {shape}: FLOPs {t['hlo_flops']}")
+        jt = _jax_dryrun_record(arch, shape, rec["mesh"], rec["accum_steps"])["roofline"]
+        delta = _parity_delta(arch, shape, multi_pod, rec["accum_steps"])
+        if not (t["hlo_flops"] > 0 and t["hlo_flops"] - jt["hlo_flops"] == delta):
+            fail(f"dry run {arch} x {shape} x {rec['mesh']}: FLOPs {t['hlo_flops']}, "
+                 f"want JAX's {jt['hlo_flops']} + {delta}")
+        if shape == "decode_32k" and not (
+                t["collective_bytes"] <= DECODE_COLLECTIVES_X * jt["collective_bytes"]):
+            fail(f"dry run {arch} x {shape}: collectives {t['collective_bytes']} B, JAX's "
+                 f"{jt['collective_bytes']} B")
         if shape == "train_4k" and "all-reduce" not in t["collective_detail"]:
             fail(f"dry run {arch} x {shape}: collectives {sorted(t['collective_detail'])}, "
                  "want an all-reduce (data-parallel gradients)")
@@ -2374,7 +2429,9 @@ def finish_dryrun(state):
             fail(f"dry run {arch}: plan {rec['plan']}, want JAX's {DRYRUN_PLANS[arch]}")
         cells.append({"arch": arch, "shape": shape, "mesh": rec["mesh"],
                       "trace_s": rec["trace_s"], "accum_steps": rec["accum_steps"],
-                      "flops_per_device": t["hlo_flops"], "hbm_bytes": t["hbm_bytes"],
+                      "flops_per_device": t["hlo_flops"], "jax_flops": jt["hlo_flops"],
+                      "derived_delta": delta, "jax_collective_bytes": jt["collective_bytes"],
+                      "hbm_bytes": t["hbm_bytes"],
                       "collective_bytes": t["collective_detail"], "dominant": t["dominant"],
                       "compute_s": t["compute_s"], "memory_s": t["memory_s"],
                       "collective_s": t["collective_s"],

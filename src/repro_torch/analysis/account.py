@@ -16,6 +16,9 @@ shapes are not counted.  It accumulates:
                            kernels/flash_attention.py and kernels/ssd_scan.py)
     * collective bytes    (per kind, max of result and operand bytes, as
                            hlo.py counts them)
+    * transcendentals     (elements of exp, log, logistic, tanh, rsqrt, sqrt,
+                           power, sin, cos and erf, as XLA's cost analysis
+                           counts them; ``transcendentals``)
     * traffic bytes       (result plus operand bytes of every operation that
                            is not a view: eager PyTorch reads each input and
                            writes each output; an index-style in-place update
@@ -24,9 +27,12 @@ shapes are not counted.  It accumulates:
 
 ``core.scope.named_scope(tag)`` marks a region ("attention_core", "ssd_core", as
 ``jax.named_scope`` does in the JAX package), and the traffic of the
-operations dispatched inside it is also summed by tag.  The scope covers
-the forward only: the JAX package's tags also reach the backward's
-transposed operations.
+operations dispatched inside it is also summed by tag.  The tags reach the
+backward too, as JAX's reach the transposed operations: while the account
+runs, a function mode stores the scopes open in the forward on each
+output's autograd node (``grad_fn.metadata["scopes"]``), and an operation
+that the backward dispatches (grad mode off, an autograd node running)
+takes the scopes of that node.
 
 With ``track_memory``, the mode also follows the bytes of the tensors that
 operations create and that are still alive (a finalizer on each output that
@@ -35,12 +41,14 @@ A tensor freed while a view of it lives counts as freed.
 """
 from __future__ import annotations
 
+import math
 import weakref
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -62,17 +70,60 @@ _DOTS = {_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
 _INDEX_UPDATES = {_aten.index_copy_.default, _aten.index_put_.default,
                   _aten.scatter_.src, _aten.scatter_add_.default,
                   _aten.index_add_.default}
+# transcendental elements per output element of each op (XLA's cost
+# analysis counts exp, log, log1p, expm1, logistic, tanh, rsqrt, sqrt,
+# power, sin, cos and erf elements); softmax and log-sum-exp count an exp
+# per input element, log_softmax and log-sum-exp a log per row
+_TRANSCENDENTAL = {f: 1 for f in (
+    _aten.exp.default, _aten.exp_.default, _aten.expm1.default, _aten.log.default,
+    _aten.log1p.default, _aten.sigmoid.default, _aten.silu.default,
+    _aten.silu_backward.default, _aten.tanh.default, _aten.rsqrt.default,
+    _aten.sqrt.default, _aten.sin.default, _aten.cos.default, _aten.erf.default,
+    _aten.pow.Tensor_Scalar, _aten.pow.Tensor_Tensor)}
+_TRANSCENDENTAL[_aten.softplus.default] = 2          # log1p(exp(x))
+_ROWWISE = {_aten._softmax.default: (1, 0), _aten._log_softmax.default: (1, 1),
+            _aten.logsumexp.default: (1, 1)}
+_INTEGER_POWERS = (1, 2, 3, -1, 0.5, -0.5)
 _NO_TRAFFIC = {_aten.empty.memory_format, _aten.empty_strided.default,
                _aten.empty_like.default, _aten.new_empty.default,
                _aten.new_empty_strided.default, _aten.detach.default,
                _aten.lift_fresh.default}
 
 
+def _open_scopes() -> tuple:
+    """The scopes of the operation being dispatched: those open in this
+    thread, or, in the backward, those of the autograd node running."""
+    scopes = current_scopes()
+    if scopes or torch.is_grad_enabled():
+        return scopes
+    node = torch._C._current_autograd_node()
+    return () if node is None else node.metadata.get("scopes", ())
+
+
 def _current_tag() -> Optional[str]:
-    for tag in reversed(current_scopes()):
+    for tag in reversed(_open_scopes()):
         if tag in TRAFFIC_TAGS:
             return tag
     return None
+
+
+class _ScopeTags(TorchFunctionMode):
+    """Stores the scopes open in this thread (maybe none) on the autograd
+    node of each output, and on the nodes a composite function (an einsum,
+    an autograd Function) made inside the call: every node not tagged yet
+    that the output's node reaches (the first scopes a node meets stay)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        scopes = current_scopes()
+        stack = [t.grad_fn for t in _tensors(out)]
+        while stack:
+            node = stack.pop()
+            if node is None or "scopes" in node.metadata:
+                continue
+            node.metadata["scopes"] = scopes
+            stack.extend(f for f, _ in node.next_functions)
+        return out
 
 
 @dataclass
@@ -83,6 +134,7 @@ class StepAccount:
     collective_ops: Dict[str, int] = field(default_factory=dict)
     traffic_by_tag: Dict[str, float] = field(default_factory=dict)
     kernel_calls: Dict[str, int] = field(default_factory=dict)
+    transcendentals: float = 0.0           # elements, as XLA's cost analysis counts
     peak_live_bytes: float = 0.0           # with track_memory
 
     @property
@@ -112,6 +164,17 @@ def dot_flops(func, args) -> float:
     return 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
 
 
+def _kernel_transcendentals(func, args) -> float:
+    """K2's exps, as the chunked scan computes them: per chunk of Q rows
+    and head, the Q x Q decays, the Q decays from the chunk's start and to
+    its end, and the chunk's total."""
+    if func._schema.name != "repro_torch::ssd_scan_hmajor":
+        return 0.0
+    B, H, S, _ = args[0].shape
+    Q = min(args[6], S)
+    return float(B * H * -(-S // Q) * (Q * Q + 2 * Q + 1))
+
+
 def _kernel_work(func, args):
     """(flops, bytes) of a K1 or K2 call, or None."""
     name = func._schema.name
@@ -124,8 +187,32 @@ def _kernel_work(func, args):
         from repro_torch.kernels.ssd_scan import work
         x, dt, B_in = args[0], args[1], args[3]
         return work(tuple(x.shape), B_in.shape[1], B_in.shape[3],
-                    x_itemsize=x.element_size(), dt_itemsize=dt.element_size())
+                    x_itemsize=x.element_size(), dt_itemsize=dt.element_size(),
+                    Q=args[6])
     return None
+
+
+def transcendentals(func, args, out) -> float:
+    """Transcendental elements of one op (``_TRANSCENDENTAL``, ``_ROWWISE``;
+    a power by an integer or half-integer exponent is a multiply or a
+    root, which XLA rewrites before it counts)."""
+    if func in _ROWWISE:
+        per_elem, per_row = _ROWWISE[func]
+        x = args[0]
+        dim = args[1] if len(args) > 1 else -1
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        rows = x.numel() // max(1, math.prod(x.shape[d] for d in dims)) if x.dim() else 1
+        return float(per_elem * x.numel() + per_row * rows)
+    if func is _aten.pow.Scalar:
+        # a constant base: XLA folds a constant exponent (RoPE's
+        # frequencies) and counts a 0-d one (the bias corrections' step)
+        return float(args[1].dim() == 0)
+    n = _TRANSCENDENTAL.get(func)
+    if n is None:
+        return 0.0
+    if func is _aten.pow.Tensor_Scalar and args[1] in _INTEGER_POWERS:
+        return 0.0
+    return float(n * sum(t.numel() for t in _tensors(out)))
 
 
 class Account(TorchDispatchMode):
@@ -176,10 +263,12 @@ class Account(TorchDispatchMode):
         if work is not None:
             flops, nbytes = work
             acc.flops += flops
+            acc.transcendentals += _kernel_transcendentals(func, args)
             acc.kernel_calls[name] = acc.kernel_calls.get(name, 0) + 1
         else:
             if func in _DOTS:
                 acc.flops += dot_flops(func, args)
+            acc.transcendentals += transcendentals(func, args, out)
             ins, outs = _tensors((args, kwargs)), _tensors(out)
             if func in _INDEX_UPDATES:
                 nbytes = 2 * sum(map(_nbytes, ins[1:]))
@@ -205,6 +294,6 @@ class Account(TorchDispatchMode):
 
 def account(fn, *args, track_memory: bool = False, **kwargs):
     """(fn's result, its StepAccount)."""
-    with Account(track_memory=track_memory) as acct:
+    with _ScopeTags(), Account(track_memory=track_memory) as acct:
         out = fn(*args, **kwargs)
     return out, acct.result

@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.scope import named_scope
 from repro_torch.kernels import build
 
 DEFAULT_CHUNK = 256
@@ -211,8 +212,9 @@ def _wants_grad(*tensors):
 class SSDScanFn(torch.autograd.Function):
     """K2 under autograd: the op's forward (on the card the kernel,
     ``k2_variant``'s choice, y in x's type), and a backward that reruns the plain chunked scan with chunks
-    of ``chunk`` rows on detached copies of the saved inputs and returns its
-    autograd gradient (a state gradient that is None counts as zero)."""
+    of ``chunk`` rows on detached copies of the saved inputs (in the
+    "ssd_core" scope) and returns its autograd gradient (a state gradient
+    that is None counts as zero)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B_in, C_in, h0, chunk):
@@ -225,7 +227,7 @@ class SSDScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gstate):
         needs = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
+        with torch.enable_grad(), named_scope("ssd_core"):
             ins = [None if t is None else t.detach().requires_grad_(need)
                    for t, need in zip(ctx.saved_tensors, needs)]
             y, state = ssd_scan_hmajor_plain(*ins[:5], chunk=ctx.chunk, h0=ins[5])

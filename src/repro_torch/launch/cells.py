@@ -78,6 +78,12 @@ class _Inputs:
             t = torch.from_numpy(self.rng.integers(0, vocab, size=shape)).to(self.device)
         return place(t, self.plan, spec)
 
+    def row_mask(self, accum, mb, mb_pad, spec):
+        t = torch.zeros((accum, mb_pad), device=self.device)
+        if self.device.type != "meta":
+            t[:, :mb] = 1.0
+        return place(t, self.plan, spec)
+
     def embeds(self, shape, spec):
         if self.device.type == "meta":
             t = torch.empty(shape, dtype=torch.float32, device="meta")
@@ -89,23 +95,27 @@ class _Inputs:
 
 def _batch_specs(cfg: ModelConfig, shape: ShapeConfig, plan: ShardingPlan, accum: int,
                  inputs: _Inputs):
-    """Train batch [accum, mb, ...]."""
+    """Train batch [accum, mb, ...]; on a mesh whose data shards do not
+    divide the microbatch, padded by zero rows as XLA pads it, with the
+    ``row_mask`` of ``train.data.pad_batch``."""
+    from repro_torch.train.data import pad_rows
     mb = shape.global_batch // accum
     d = plan.spec("batch")[0]
-    if d is not None and mb % plan.info.data_size != 0:
-        d = None                      # tiny smoke batches: replicate
+    mb_pad = pad_rows(plan, mb) if plan.info.distributed else mb
     S = shape.seq_len
     n_img = cfg.num_image_tokens
     S_tok = S - n_img if n_img else S
     out = {
-        "tokens": inputs.tokens((accum, mb, S_tok), cfg.vocab_size, (None, d, None)),
+        "tokens": inputs.tokens((accum, mb_pad, S_tok), cfg.vocab_size, (None, d, None)),
     }
     out["labels"] = out["tokens"]
+    if mb_pad != mb:
+        out["row_mask"] = inputs.row_mask(accum, mb, mb_pad, (None, d))
     if cfg.encoder is not None:
-        out["enc_embeds"] = inputs.embeds((accum, mb, cfg.encoder.source_len, cfg.d_model),
+        out["enc_embeds"] = inputs.embeds((accum, mb_pad, cfg.encoder.source_len, cfg.d_model),
                                           (None, d, None, None))
     if n_img:
-        out["embeds_prefix"] = inputs.embeds((accum, mb, n_img, cfg.d_model),
+        out["embeds_prefix"] = inputs.embeds((accum, mb_pad, n_img, cfg.d_model),
                                              (None, d, None, None))
     return out
 

@@ -25,7 +25,12 @@ decode cache); ``temp_bytes`` the peak, over the run, of the bytes of the
 tensors the step created and had not freed yet (a finalizer on each, see
 account.py), less the new outputs; ``peak_estimate_bytes`` = argument +
 output - alias + temp, JAX's sum.  ``cost_analysis`` holds the account's
-own "flops" and "bytes accessed" (the port has no XLA cost analysis).
+own "flops", "bytes accessed" and "transcendentals" (the port has no XLA
+cost analysis).  XLA's counts each while loop's body once (a scanned layer
+stack, an accumulation loop, a chunk loop), where the account counts every
+execution: the two agree when every loop runs once
+(tests/test_torch_transcendentals.py).  JAX's CPU records also carry
+"optimal_seconds" (-1.0 or -2.0 there), which has no counterpart.
 Exit 1 on any error, as JAX's does.
 """
 from __future__ import annotations
@@ -136,7 +141,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False, accum=None,
                   "kv_sharded": cell.plan.kv_sharded,
                   "head_pad_overhead": cell.plan.head_pad_overhead},
             memory_analysis=mem,
-            cost_analysis={"flops": acct.flops, "bytes accessed": acct.traffic_bytes},
+            cost_analysis={"flops": acct.flops, "bytes accessed": acct.traffic_bytes,
+                           "transcendentals": acct.transcendentals},
             roofline=terms.to_dict(),
             traffic_by_tag=dict(acct.traffic_by_tag),
         )

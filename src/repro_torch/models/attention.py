@@ -133,6 +133,64 @@ def _attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _keys_cut(q, k) -> tuple:
+    """The mesh dims that cut k's key axis (dim 1) while q's is whole: the
+    flash-decode layout of a decode cache sharded on its sequence."""
+    from torch.distributed.tensor import DTensor
+    if not (isinstance(q, DTensor) and isinstance(k, DTensor)) or any(
+            p.is_shard(1) for p in q.placements):
+        return ()
+    return tuple(i for i, p in enumerate(k.placements) if p.is_shard(1))
+
+
+def _attention_keys_cut(q, k, v, dims, *, causal, window, q_offset, kv_valid_len,
+                        k_scale, v_scale, softmax_scale):
+    """Dot attention over keys cut on mesh ``dims``, as XLA partitions
+    ``repro.models.attention``'s softmax over a sharded key axis: each shard
+    scores its own keys (at their global positions), the row max and the
+    row sum are all-reduced over ``dims``, and so is P·V.  q's heads and
+    batch keep their cuts; the other inputs follow k's."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    mesh = k.device_mesh
+    q_pl = tuple(Replicate() if i in dims else p for i, p in enumerate(q.placements))
+    k_pl = k.placements
+    s_pl = tuple(p if i in dims else q_pl[i] for i, p in enumerate(k_pl))
+    kv_pl = s_pl
+    off = compute_local_shape_and_global_offset(k.shape, mesh, kv_pl)[1][1]
+
+    def reduce(t, op):
+        for i in dims:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
+    def local(q, k, v, k_scale, v_scale):
+        B, Sq, H, hd = q.shape
+        K = k.shape[2]
+        G = H // K
+        scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+        k = _dequant(k, k_scale).to(q.dtype)
+        v = _dequant(v, v_scale).to(q.dtype)
+        scores = _gqa_scores(q.reshape(B, Sq, K, G, hd), k) * scale    # [B,K,G,Sq,Sk]
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        k_pos = off + torch.arange(k.shape[1], device=q.device)
+        m = _mask(q_pos, k_pos, causal=causal, window=window, kv_valid_len=kv_valid_len)
+        scores = torch.where(m[None, None, None], scores, NEG_INF)
+        row_max = reduce(torch.amax(scores, dim=-1, keepdim=True), "max")
+        p = torch.exp(scores - row_max)
+        row_sum = reduce(torch.sum(p, dim=-1, keepdim=True), "sum")
+        probs = p / row_sum
+        out = reduce(torch.einsum("bkgqs,bskd->bqkgd", probs.to(q.dtype).float(), v.float()),
+                     "sum")
+        return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+    scale_pl = None if k_scale is None else kv_pl
+    with named_scope("attention_core"):
+        return per_shard(local, (q_pl, kv_pl, kv_pl, scale_pl, scale_pl), q_pl)(
+            q, k, v, k_scale, v_scale)
+
+
 def _shardwise(q, k, v, k_scale, v_scale) -> bool:
     """Can a call on DTensors run shard by shard?  Yes when q, k and v are
     DTensors cut alike on batch (dim 0) and heads (dim 2) only (each shard's
@@ -152,8 +210,11 @@ def attention(q, k, v, *, impl="auto", causal=True, window=None, q_offset=0,
               softmax_scale=None):
     """Attention by ``impl``.  On DTensors cut alike on batch and heads it
     runs on each shard's local tensors, as under JAX's shard_map (attention
-    is independent per batch row and head); other DTensors take the ops one
-    by one through DTensor (e.g. a decode cache sharded on its sequence)."""
+    is independent per batch row and head); the dot path over a key axis
+    cut on the mesh (a decode cache sharded on its sequence) runs per shard
+    with its softmax's row max and sum all-reduced
+    (``_attention_keys_cut``); other DTensors take the ops one by one
+    through DTensor."""
     if _shardwise(q, k, v, k_scale, v_scale):
         def local(q, k, v, k_scale, v_scale):
             return attention(q, k, v, impl=impl, causal=causal, window=window,
@@ -164,6 +225,9 @@ def attention(q, k, v, *, impl="auto", causal=True, window=None, q_offset=0,
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               kv_valid_len=kv_valid_len, k_scale=k_scale, v_scale=v_scale,
               softmax_scale=softmax_scale)
+    dims = _keys_cut(q, k)
+    if dims and impl == "dot":
+        return _attention_keys_cut(q, k, v, dims, **kw)
     if impl == "auto":
         impl = "chunked" if (q.shape[1] > 2048 or k.shape[1] > 4096) else "dot"
     if impl == "dot":

@@ -157,18 +157,29 @@ def cross_entropy_loss(logits, labels, real_vocab: int, mask=None):
     # masked_fill, not where with a scalar: on a mesh where's backward meets
     # the scalar as a whole replicated [batch, seq, vocab] tensor
     logits = logits.masked_fill(iota >= real_vocab, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
     if type(logits) is torch.Tensor:
+        lse = torch.logsumexp(logits, dim=-1)
         nll = lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
     else:
         # a DTensor sharded on the vocab: the JAX package's one-hot
         # contraction, which stays per shard until the (tiny) reduction;
         # nll and its gradient are held cut as the logits' rows, so that the
         # gradient meets the one-hot per shard
-        from torch.distributed.tensor import Replicate
-        from repro_torch.sharding.plan import constrain
-        nll = lse - torch.sum(logits * (iota == labels[..., None]), dim=-1)
+        from torch.distributed.tensor import Partial, Replicate
+        from repro_torch.sharding.plan import constrain, per_shard
+        # the log-sum-exp from the row max and the row sum, each reduced
+        # over the vocab shards (an all-reduce), as XLA partitions it;
+        # DTensor's logsumexp would gather the whole f32 logits, and its
+        # sum's backward would gather them again
         last = logits.dim() - 1
+        pl = logits.placements
+        rows = tuple(Replicate() if p.is_shard(last) else p for p in pl)
+        row_max = torch.amax(logits, dim=-1, keepdim=True).detach()
+        sums = per_shard(lambda l, m: torch.sum(torch.exp(l - m), dim=-1),
+                         (pl, rows), tuple(Partial() if p.is_shard(last) else p for p in pl))(
+            logits, row_max)
+        lse = torch.log(sums.redistribute(sums.device_mesh, rows)) + row_max[..., 0]
+        nll = lse - torch.sum(logits * (iota == labels[..., None]), dim=-1)
         nll = constrain(nll, [Replicate() if p.is_partial() or (p.is_shard() and p.dim == last)
                               else p for p in logits.placements])
     if mask is not None:

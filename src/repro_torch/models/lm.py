@@ -73,7 +73,7 @@ from repro_torch.models.layers import (ParamSpec, abstract_tree, apply_rope,
                                        cross_entropy_loss, init_tree,
                                        place, rms_norm, spec_tree_partition,
                                        swiglu, torch_dtype, vocab_iota)
-from repro_torch.sharding.plan import ShardingPlan, make_plan, per_shard
+from repro_torch.sharding.plan import ShardingPlan, make_plan, model_cut, per_shard
 from repro_torch.train.tree import tree_map
 
 
@@ -188,13 +188,15 @@ def _save_unbatched_products(ctx, op, *args, **kwargs):
     of 1; attention scores and the experts' ``bmm`` have a real batch and
     are recomputed, as in JAX.  The experts' batch is theirs even when a
     mesh shard holds one expert (phi3.5-moe's 16 over a model axis of 16):
-    the products in the "experts" scope are always recomputed.  K1 and K2
-    are ctypes launches that the dispatcher never sees: only the ``empty``
-    buffers they fill are ops here, and those are recomputed (and
-    refilled) with the rest."""
+    the products in the "experts" scope are always recomputed.  K1 is
+    recomputed with the rest; K2's outputs are kept, since the backward of
+    ``SSDScanFn`` reruns the plain scan on its saved inputs, and that rerun
+    is the recompute JAX's remat makes of the SSD."""
     if op is torch.ops.aten.mm.default or (op is torch.ops.aten.bmm.default
                                            and args[0].shape[0] == 1
                                            and "experts" not in current_scopes()):
+        return CheckpointPolicy.MUST_SAVE
+    if op is torch.ops.repro_torch.ssd_scan_hmajor.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -395,11 +397,18 @@ class LM(nn.Module):
                 causal=False, window=None, chunk=cfg.attention_chunk)
             return self._sublayer_out(torch.einsum("bshk,hkd->bsd", out, p["wo"])), None
 
-        # no cache to emit: widen the replicated kv weights so that each
+        # train and prefill: widen the replicated kv weights so that each
         # shard projects only the kv heads its q heads read, then repeat
-        # them (locally) for those q heads
-        widened = self._kv_replicated() and cache is None and prefill_kv_dtype is None
+        # them (locally) for those q heads; prefill gathers the cache it
+        # emits from the widened heads (``_kv_cache_of``)
+        widened = self._kv_replicated() and cache is None
         wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+        if self._kv_replicated() and cache is not None and plan.fsdp:
+            # decode under FSDP: the kv projections' contraction (the embed
+            # dim the weights hold cut over the data axes) split over the
+            # model axis, as XLA splits it on one pod, then all-reduced
+            wk, wv = (model_cut(w, 0, gather=True) for w in (wk, wv))
+            x = model_cut(x, 2)
         if widened:
             w_rep, k_rep = self._kv_widening()
             wk, wv = (self._widen(w, 1, w_rep, ("embed", "q_heads", "head_dim"))
@@ -450,6 +459,8 @@ class LM(nn.Module):
                 impl=cfg.attention_impl, causal=causal,
                 window=window, chunk=cfg.attention_chunk)
             if prefill_kv_dtype is not None:
+                if widened:
+                    k, v = (self._kv_cache_of(t, B) for t in (k, v))
                 if prefill_kv_dtype == "int8":
                     kq, ks = _quantize_kv(k)
                     vq, vs = _quantize_kv(v)
@@ -485,6 +496,36 @@ class LM(nn.Module):
         G = self.plan.H // self.plan.K
         return tuple(self._widen(t, 2, G, ("batch", "seq", "q_heads", "head_dim"))
                      for t in (k, v))
+
+    def _kv_cache_of(self, t, batch):
+        """The cache entry [B,S,K,...] of a widened k or v (or its int8 scale)
+        [B,S,H,...], whose q-head slot h holds kv head h // G: each shard
+        takes its sequence rows of every slot (an all-to-all over the model
+        axis, as ``kv_cache_spec`` places a replicated-kv cache) and keeps
+        the slots 0, G, 2G, ..."""
+        plan = self.plan
+        G = plan.H // plan.K
+        spec = plan.kv_cache_spec(batch)[2:2 + t.dim()]
+        pl = plan.placements_of(plan.divisible(t.shape, spec))
+        mesh, names = t.device_mesh, plan.info.axis_names
+        model = names.index("model")
+        if [i for i, p in enumerate(pl) if p.is_shard(1)] == [model] and \
+                t.placements[model].is_shard(2):
+            # the all-to-all itself (DTensor's, on a CPU mesh, gathers all)
+            m = mesh.size(model)
+            src = tuple(p if i != model else t.placements[model] for i, p in enumerate(pl))
+            t = t.redistribute(mesh, src)
+
+            def swap(loc):
+                from torch.distributed import _functional_collectives as funcol
+                b, S = loc.shape[:2]
+                chunks = loc.reshape(b, m, S // m, *loc.shape[2:]).movedim(1, 0).contiguous()
+                got = funcol.all_to_all_single(chunks, None, None, (mesh, model))
+                got = got.movedim(0, 2)                       # [b, S/m, m, slots, ...]
+                return got.reshape(b, S // m, -1, *loc.shape[3:])[:, :, ::G]
+            return per_shard(swap, (src,), pl)(t)
+        t = t.redistribute(mesh, pl)
+        return per_shard(lambda loc: loc[:, :, ::G], (pl,), pl)(t)
 
     def _kv_widening(self):
         """(weight repeat, activation repeat) of the widened kv projection:
@@ -533,19 +574,26 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------ forward
     def forward(self, tokens, *, embeds_prefix=None, enc_embeds=None, labels=None,
-                mode="train", kv_dtype="bfloat16"):
+                row_mask=None, mode="train", kv_dtype="bfloat16"):
         """mode 'train': returns {'loss', 'aux_loss'} (labels given) or
         {'logits', 'aux_loss'}.  mode 'prefill': returns {'logits' [B,1,V],
         'cache'} with the cache at the prompt's length.  The enc-dec family
         needs ``enc_embeds`` [B, source_len, D]; ``embeds_prefix`` [B, n, D]
-        goes before the token embeddings (vlm)."""
+        goes before the token embeddings (vlm).  ``row_mask`` [B] (1 for a
+        real row, 0 for a padding row of ``train.data.pad_batch``) leaves
+        the padding rows out of the loss."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"unknown mode {mode!r}")
+        if row_mask is not None and self.cfg.moe is not None:
+            raise NotImplementedError("padded microbatches with MoE layers: the padding "
+                                      "rows would take expert capacity")
         with self.spmd():
             return self._forward(tokens, embeds_prefix=embeds_prefix, enc_embeds=enc_embeds,
-                                 labels=labels, mode=mode, kv_dtype=kv_dtype)
+                                 labels=labels, row_mask=row_mask, mode=mode,
+                                 kv_dtype=kv_dtype)
 
-    def _forward(self, tokens, *, embeds_prefix, enc_embeds, labels, mode, kv_dtype):
+    def _forward(self, tokens, *, embeds_prefix, enc_embeds, labels, row_mask, mode,
+                 kv_dtype):
         cfg = self.cfg
         x = self._embed_inputs(tokens, embeds_prefix)
         enc_out = None
@@ -568,8 +616,9 @@ class LM(nn.Module):
             n_img = x.shape[1] - tokens.shape[1]
             if n_img > 0:
                 logits = logits[:, n_img:]
+            mask = None if row_mask is None else row_mask[:, None].expand(labels[:, 1:].shape)
             out["loss"] = cross_entropy_loss(logits[:, :-1], labels[:, 1:],
-                                             cfg.vocab_size) + 0.01 * aux
+                                             cfg.vocab_size, mask=mask) + 0.01 * aux
         else:
             out["logits"] = self._mask_vocab(logits)
         return out

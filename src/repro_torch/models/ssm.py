@@ -17,7 +17,7 @@ from repro_torch.core.scope import named_scope
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
 from repro_torch.models.layers import rms_norm
-from repro_torch.sharding.plan import per_shard
+from repro_torch.sharding.plan import model_cut, per_shard
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
@@ -38,13 +38,15 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     of ``chunk`` rows.  DTensors run shard by shard, as under JAX's
     shard_map (the scan is independent per batch row and head): x may be
     cut on batch (dim 0) and heads (dim 2), and the other inputs are brought
-    to the matching cuts (B and C whole over the heads' mesh axis, one
-    group).
+    to the matching cuts (B and C whole over the heads' mesh axis; each
+    shard takes the groups of its own heads, ``_groups_of``).
     """
     from torch.distributed.tensor import DTensor
     if isinstance(x, DTensor):
-        pl, cut = x.placements, _cuts(x, B, 2)
-        return per_shard(lambda *a: ssd_chunked(*a[:5], chunk=chunk, h0=a[5]),
+        pl, cut = x.placements, _cuts(x, 2)
+        groups = _groups_of(x, 2, B.shape[2])
+        return per_shard(lambda x, dt, A, B, C, h0: ssd_chunked(
+                             x, dt, A, groups(B), groups(C), chunk=chunk, h0=h0),
                          (pl, pl, cut(None, 0), cut(0, None), cut(0, None), cut(0, 1)),
                          (pl, cut(0, 1)))(x, dt, A, B, C, h0)
     with named_scope("ssd_core"):
@@ -55,13 +57,31 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
         return y.movedim(1, 2), h
 
 
-def _cuts(t, B, head_dim_of_t):
+def _groups_of(t, head_dim, G):
+    """A function that cuts B or C ([b, ..., G, N], its groups at dim -2,
+    whole) to the groups of the heads of this rank's shard of ``t`` (a
+    DTensor whose heads, at ``head_dim``, are cut over the mesh), so that
+    the shard's heads keep their groups: H / G heads a group, the shard's
+    heads whole groups or within one group."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    H = t.shape[head_dim]
+    hg = H // G
+    shape, off = compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)
+    h0, n = off[head_dim], shape[head_dim]
+    if G == 1:
+        return lambda b: b
+    if (n % hg if n >= hg else hg % n) or h0 % min(n, hg):
+        raise NotImplementedError(f"{n} heads from head {h0} do not keep whole B/C groups "
+                                  f"of {hg} heads")
+    g0, g1 = h0 // hg, (h0 + n - 1) // hg + 1
+    return lambda b: b[..., g0:g1, :]
+
+
+def _cuts(t, head_dim_of_t):
     """``cut(batch_dim, head_dim)``: the placements of ``t``, a DTensor cut
     on batch (dim 0) and heads (dim ``head_dim_of_t``), moved to another
     tensor's batch and head dims (None: replicated there)."""
     from torch.distributed.tensor import Replicate, Shard
-    if B.shape[-2] != 1:
-        raise NotImplementedError("SSD on a mesh takes one B/C group (every config has one)")
     pl = t.placements
     if not all(p.is_replicate() or (p.is_shard() and p.dim in (0, head_dim_of_t))
                for p in pl):
@@ -83,8 +103,10 @@ def ssd_decode_step(h, x, dt, A, B, C):
     """
     from torch.distributed.tensor import DTensor
     if isinstance(h, DTensor):
-        pl, cut = h.placements, _cuts(h, B, 1)
-        return per_shard(ssd_decode_step,
+        pl, cut = h.placements, _cuts(h, 1)
+        groups = _groups_of(h, 1, B.shape[1])
+        return per_shard(lambda h, x, dt, A, B, C: ssd_decode_step(
+                             h, x, dt, A, groups(B), groups(C)),
                          (pl, cut(0, 1), cut(0, 1), cut(None, 0), cut(0, None), cut(0, None)),
                          (cut(0, 1), pl))(h, x, dt, A, B, C)
     H = h.shape[1]
@@ -98,25 +120,50 @@ def ssd_decode_step(h, x, dt, A, B, C):
     return y.to(x.dtype), h_new
 
 
-def causal_conv(x, w, b):
-    """Depthwise causal conv. x [B,S,C]; w [W,C]; b [C].  On a DTensor x
-    (cut on batch and channels, the sequence whole) it runs per shard: each
-    channel's conv needs only its own rows."""
+def causal_conv(x, w, b, halo=None):
+    """Depthwise causal conv. x [B,S,C]; w [W,C]; b [C]; ``halo`` [B,W-1,C]
+    the rows before x (zeros if None).  On a DTensor x (cut on batch and
+    channels, and maybe on the sequence) it runs per shard: each channel's
+    conv needs only its own rows, and a shard of the sequence the last W-1
+    rows of the shards before it (``_halo``)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if isinstance(x, DTensor):
         pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
-        if any(p.is_shard() and p.dim == 1 for p in pl):
-            raise NotImplementedError(f"causal conv on x placed {pl}: the sequence is cut")
 
         def chan(dim):
             return tuple(Shard(dim) if p.is_shard() and p.dim == 2 else Replicate() for p in pl)
-        return per_shard(causal_conv, (pl, chan(1), chan(0)), pl)(x, w, b)
+        seq = tuple(i for i, p in enumerate(pl) if p.is_shard(1))
+
+        def local(loc, w, b):
+            return causal_conv(loc, w, b, _halo(loc, w.shape[0] - 1, x, seq))
+        return per_shard(local, (pl, chan(1), chan(0)), pl)(x, w, b)
     W, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = torch.cat([halo.to(x.dtype), x], dim=1) if halo is not None else F.pad(x, (0, 0, W - 1, 0))
     out = 0
     for i in range(W):
         out = out + xp[:, i:i + S] * w[i]
     return out + b
+
+
+def _halo(loc, n, x, dims):
+    """The ``n`` rows before this rank's shard ``loc`` of the sequence of
+    ``x`` (cut over mesh ``dims``, major to minor): every shard's last n rows
+    gathered (an all-gather of the tails), the previous shard's taken, zeros
+    before the first; None when the sequence is whole."""
+    if not dims:
+        return None
+    from torch.distributed import _functional_collectives as funcol
+    mesh = x.device_mesh
+    tails = loc[:, -n:]
+    for i in reversed(dims):
+        tails = funcol.all_gather_tensor_autograd(tails.contiguous(), 1, (mesh, i))
+    rank = 0
+    for i in dims:
+        rank = rank * mesh.size(i) + mesh.get_local_rank(i)
+    # every rank takes its rows out of the gathered tails (zeros before the
+    # first), so that every rank's backward runs the gather's reduce-scatter
+    tails = torch.cat([torch.zeros_like(tails[:, :n]), tails], dim=1)
+    return tails[:, rank * n:(rank + 1) * n]
 
 
 def causal_conv_step(conv_state, x_new, w, b):
@@ -128,6 +175,32 @@ def causal_conv_step(conv_state, x_new, w, b):
     wt = torch.promote_types(ct, w.dtype)
     out = torch.einsum("bwc,wc->bc", full.to(wt), w.to(wt))
     return out + b, full[:, 1:]
+
+
+def _whole(t):
+    """``t`` replicated on every mesh dim (``t`` itself off a mesh)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _norm(y, w, eps: float):
+    """``rms_norm`` over d_inner.  On a DTensor cut on it, each shard
+    normalises its channels with the sum of squares all-reduced (left to
+    DTensor, the norm's backward gathers the activations)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    last = y.dim() - 1
+    if not isinstance(y, DTensor) or not any(p.is_shard(last) for p in y.placements):
+        return rms_norm(y, w, eps)
+    pl = y.placements
+    whole = tuple(Replicate() if p.is_shard(last) else p for p in pl)
+    sums = per_shard(lambda loc: torch.square(loc.float()).sum(-1, keepdim=True), (pl,),
+                     tuple(Partial() if p.is_shard(last) else p for p in pl))(y)
+    rstd = torch.rsqrt(sums.redistribute(sums.device_mesh, whole) / y.shape[-1] + eps)
+    w_pl = tuple(Shard(0) if p.is_shard(last) else Replicate() for p in pl)
+    return per_shard(lambda yl, rl, wl: (yl.float() * rl * (1.0 + wl.float())).to(yl.dtype),
+                     (pl, whole, w_pl), pl)(y, rstd, w)
 
 
 def mamba_block(u, p, cfg: ModelConfig, h0=None, conv0=None, decode: bool = False):
@@ -147,8 +220,14 @@ def mamba_block(u, p, cfg: ModelConfig, h0=None, conv0=None, decode: bool = Fals
 
     z = u @ p["w_z"]
     xc = u @ p["w_x"]                                             # [B,S,di]
-    Bp = u @ p["w_B"]                                             # [B,S,G*N]
-    Cp = u @ p["w_C"]
+    # serving on a mesh, the B/C channels are cut over the model axis
+    # through their conv and silu, as XLA partitions them there; the train
+    # step keeps them whole, as XLA does under the gradient (the weights
+    # gathered whole: under FSDP DTensor would rather cut the products)
+    cut_bc = not torch.is_grad_enabled()
+    w_B, w_C = ((model_cut(w, 1) if cut_bc else _whole(w)) for w in (p["w_B"], p["w_C"]))
+    Bp = u @ w_B                                                  # [B,S,G*N]
+    Cp = u @ w_C
     dt = u @ p["w_dt"]                                            # [B,S,nh]
     dt = F.softplus(dt.float() + p["dt_bias"].float())
 
@@ -177,6 +256,8 @@ def mamba_block(u, p, cfg: ModelConfig, h0=None, conv0=None, decode: bool = Fals
         return F.silu(a.float()).to(u.dtype)
 
     xc, Bp, Cp = silu(xc), silu(Bp), silu(Cp)
+    if cut_bc:      # the SSD takes B and C whole over the heads' axis
+        Bp, Cp = model_cut(Bp, None), model_cut(Cp, None)
     xh = xc.reshape(B_, S, nh, P)
     Bm = Bp.reshape(B_, S, G, N)
     Cm = Cp.reshape(B_, S, G, N)
@@ -191,6 +272,6 @@ def mamba_block(u, p, cfg: ModelConfig, h0=None, conv0=None, decode: bool = Fals
     y = y + p["d_skip"].float()[None, None, :, None] * xh
     y = y.reshape(B_, S, di)
     y = y * F.silu(z.float()).to(y.dtype)                         # gated
-    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    y = _norm(y, p["norm"], cfg.norm_eps)
     out = y.to(u.dtype) @ p["w_out"]
     return out.to(u.dtype), (h_new, conv_new)

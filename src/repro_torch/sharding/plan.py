@@ -264,8 +264,12 @@ def per_shard(fn, in_placements, out_placements, mesh=None):
     placed by ``out_placements`` (one tuple of placements, or one per output
     when ``fn`` returns a tuple) on the arguments' mesh, or ``mesh``.  The
     shards are even (``ShardingPlan.divisible``), so each output's global
-    shape follows from its local one."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    shape follows from its local one.  An argument whole over a mesh dim
+    that cuts an output takes, in the backward, the sum of the shards'
+    gradients (each shard's is a part: a Partial gradient)."""
+    from torch.distributed.tensor import DTensor, Partial, distribute_tensor
+    outs = out_placements if isinstance(out_placements[0], tuple) else (out_placements,)
+    cut = [any(not o[i].is_replicate() for o in outs) for i in range(len(outs[0]))]
 
     def run(*args):
         m = mesh or next(a.device_mesh for a in args if isinstance(a, DTensor))
@@ -274,7 +278,9 @@ def per_shard(fn, in_placements, out_placements, mesh=None):
             if pl is None or a is None:
                 return a
             a = a.redistribute(m, pl) if isinstance(a, DTensor) else distribute_tensor(a, m, pl)
-            return a.to_local()
+            return _ContiguousGrad.apply(a.to_local(
+                grad_placements=[Partial() if c and p.is_replicate() else p
+                                 for p, c in zip(pl, cut)]))
 
         def wrap(t, pl):
             return DTensor.from_local(t.contiguous(), m, pl, run_check=False)
@@ -284,6 +290,38 @@ def per_shard(fn, in_placements, out_placements, mesh=None):
             return tuple(wrap(t, pl) for t, pl in zip(out, out_placements, strict=True))
         return wrap(out, out_placements)
     return run
+
+
+def model_cut(t, dim, gather: bool = False):
+    """``t`` with its placement on the mesh's "model" axis made Shard(dim)
+    (Replicate when ``dim`` is None) and, with ``gather``, every other
+    mesh axis that cuts ``dim`` made Replicate; ``t`` itself when it is not
+    a DTensor, its mesh has no model axis or that axis does not divide the
+    dim."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor) or "model" not in (t.device_mesh.mesh_dim_names or ()):
+        return t
+    i = t.device_mesh.mesh_dim_names.index("model")
+    if dim is not None and t.shape[dim] % t.device_mesh.size(i):
+        return t
+    pl = [(Replicate() if dim is None else Shard(dim)) if j == i else
+          (Replicate() if gather and p.is_shard(dim) else p)
+          for j, p in enumerate(t.placements)]
+    return t.redistribute(t.device_mesh, pl)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a local gradient
+    laid out by a permute (``movedim``) would meet, once wrapped as a
+    DTensor, a reshape that DTensor reckons a view of it."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
 
 
 def constrain(x, placements):

@@ -73,10 +73,38 @@ def batch_to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+def pad_rows(plan, mb: int) -> int:
+    """The microbatch ``mb`` rounded up to a multiple of the plan's data
+    shards, as XLA pads a batch dim that its mesh axes do not divide."""
+    n = plan.info.data_size if plan.spec("batch")[0] is not None else 1
+    return -(-mb // n) * n
+
+
+def pad_batch(batch: dict, plan) -> dict:
+    """``batch`` ([accum, mb, ...] tensors) with its microbatch padded by
+    zero rows to ``pad_rows`` and, when padded, a ``row_mask`` [accum,
+    mb_pad] float32 (1 for a real row): the train step's loss counts the
+    real rows only, so its value and gradients are the unpadded step's."""
+    mb = next(iter(batch.values())).shape[1]
+    pad = pad_rows(plan, mb) - mb
+    if not pad:
+        return batch
+    out = {k: torch.cat([v, v.new_zeros((v.shape[0], pad) + tuple(v.shape[2:]))], dim=1)
+           for k, v in batch.items()}
+    accum, dev = out["tokens"].shape[0], out["tokens"].device
+    out["row_mask"] = torch.cat([torch.ones((accum, mb), device=dev),
+                                 torch.zeros((accum, pad), device=dev)], dim=1)
+    return out
+
+
 def shard_batch(batch: dict, plan) -> dict:
     """A device batch ([accum, mb, ...] tensors) placed with its microbatch
     dim sharded over the data axes (dim 1 after accum), as JAX's
-    ``shard_batch`` puts it; on a one-device plan the batch as it is."""
+    ``shard_batch`` puts it, after ``pad_batch``; on a one-device plan the
+    batch as it is."""
     from repro_torch.models.layers import place
+    if not plan.info.distributed:
+        return batch
     d = plan.spec("batch")[0]
-    return {k: place(v, plan, (None, d) + (None,) * (v.dim() - 2)) for k, v in batch.items()}
+    return {k: place(v, plan, (None, d) + (None,) * (v.dim() - 2))
+            for k, v in pad_batch(batch, plan).items()}

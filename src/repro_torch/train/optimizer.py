@@ -22,8 +22,9 @@ the first dimension that is still replicated and divides the data-axis size
 gradient (already all-reduced over the data axes) and the param are cut to
 the state's shard, and the new param is gathered back to its placement,
 where XLA, in the JAX package, reduce-scatters into the state shards and
-all-gathers the params.  The int8 state runs on one device only (its
-blocks run over the whole flattened leaf).
+all-gathers the params.  The int8 state's blocks of 256 run over the
+whole flattened leaf there too (``_update_q8_shard``): a block may span
+shards, and its scale is the absmax over all of them.
 """
 from __future__ import annotations
 
@@ -147,11 +148,21 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _update_slice(p, g, m, v, master, m_scale, v_scale, *, cfg, lr, clip, bc1, bc2):
+def _adamw(g, m_f, v_f, base, *, cfg, lr, clip, bc1, bc2):
+    """The AdamW formulas in float32: (m, v, new master)."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.float() * clip
+    m_f = b1 * m_f + (1 - b1) * g
+    v_f = b2 * v_f + (1 - b2) * torch.square(g)
+    mhat, vhat = m_f / bc1, v_f / bc2
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * base
+    return m_f, v_f, base - lr * delta
+
+
+def _update_slice(p, g, m, v, master, m_scale, v_scale, **hyper):
     """AdamW on one slice of a leaf, in place: ``m``, ``v``, ``master`` and
     ``p`` are overwritten (q8 state comes as codes with the scales of the
     slice's blocks)."""
-    b1, b2 = cfg.beta1, cfg.beta2
     q8 = m_scale is not None
     if q8:
         m_f = q8_decode(m, m_scale)
@@ -160,13 +171,8 @@ def _update_slice(p, g, m, v, master, m_scale, v_scale, *, cfg, lr, clip, bc1, b
         v_f = torch.square(q8_decode(v, v_scale))
     else:
         m_f, v_f = m, v
-    g = g.float() * clip
-    m_f = b1 * m_f + (1 - b1) * g
-    v_f = b2 * v_f + (1 - b2) * torch.square(g)
-    mhat, vhat = m_f / bc1, v_f / bc2
     base = master if master is not None else p.float()
-    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * base
-    new_master = base - lr * delta
+    m_f, v_f, new_master = _adamw(g, m_f, v_f, base, **hyper)
     if q8:
         for codes, scale, value in ((m, m_scale, m_f), (v, v_scale, torch.sqrt(v_f))):
             q, sc = q8_encode(value)
@@ -199,15 +205,70 @@ def _update_sharded(p, g, m, v, master, **hyper):
     gradient (replicated over the data axes) and the param are cut to the
     state's placements, the shard is updated, and the new param is
     gathered back to its own placement, where XLA, in the JAX package,
-    reduce-scatters into the state shards and all-gathers the params."""
-    if isinstance(m, dict):
-        raise NotImplementedError("the int8 optimizer state runs on one device only")
-    mesh, pl = m.device_mesh, m.placements
+    reduce-scatters into the state shards and all-gathers the params.  The
+    int8 state takes ``_update_q8_shard``."""
+    q8 = isinstance(m, dict)
+    mesh, pl = (m["q"] if q8 else m).device_mesh, (m["q"] if q8 else m).placements
     local = p.redistribute(mesh, pl)
-    _update_leaf(local.to_local(), g.redistribute(mesh, pl).to_local(), m.to_local(),
-                 v.to_local(), None if master is None else master.to_local(), **hyper)
+    args = (local.to_local(), g.redistribute(mesh, pl).to_local())
+    master = None if master is None else master.to_local()
+    if q8:
+        _update_q8_shard(*args, m, v, master, **hyper)
+    else:
+        _update_leaf(*args, m.to_local(), v.to_local(), master, **hyper)
     if tuple(pl) != tuple(p.placements):
         p.copy_(local.redistribute(p.device_mesh, p.placements))
+
+
+def _block_ids(q) -> torch.Tensor:
+    """The block (of ``BLOCK`` elements of the whole flattened leaf) of each
+    element of this rank's shard of ``q``, in the shard's row-major order."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    shape = tuple(q.shape)
+    lshape, off = compute_local_shape_and_global_offset(shape, q.device_mesh, q.placements)
+    dev = q.to_local().device
+    flat = torch.zeros(lshape, dtype=torch.long, device=dev)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        at = (off[d] + torch.arange(lshape[d], device=dev)) * stride
+        flat = flat + at.reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= shape[d]
+    return flat.reshape(-1) // BLOCK
+
+
+def _update_q8_shard(p, g, m, v, master, **hyper):
+    """AdamW on this rank's ZeRO-1 shard of a leaf whose m and v are int8
+    DTensors (``{"q", "scale"}``, placed as ``opt_state_specs`` places
+    them, JAX's ``q8_state``): a block of 256 runs over the whole flattened
+    leaf, as on one device, and may span shards.  Each element is decoded
+    with its block's scale (the scales gathered whole), and each block's
+    new absmax is the max over the shards that hold part of it (an
+    all-reduce); so the codes and scales are those of one device."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import distribute_tensor
+    q_dt = m["q"]
+    mesh, blk = q_dt.device_mesh, _block_ids(q_dt)
+    nb = m["scale"].shape[0]
+
+    def decode(st):
+        return st["q"].to_local().reshape(-1).float() * st["scale"].full_tensor()[blk]
+
+    m_f, v_f = decode(m), torch.square(decode(v))
+    base = master.reshape(-1) if master is not None else p.reshape(-1).float()
+    m_f, v_f, new_master = _adamw(g.reshape(-1), m_f, v_f, base, **hyper)
+    for st, value in ((m, m_f), (v, torch.sqrt(v_f))):
+        amax = torch.zeros(nb, device=value.device).scatter_reduce(
+            0, blk, torch.abs(value), "amax")
+        for i in range(mesh.ndim):
+            amax = funcol.all_reduce(amax, "max", (mesh, i))
+        scale = torch.clamp(amax / 127.0, min=1e-12)
+        codes = torch.clamp(torch.round(value / scale[blk]), -127, 127).to(torch.int8)
+        st["q"].to_local().copy_(codes.reshape(st["q"].to_local().shape))
+        sc = st["scale"]
+        sc.to_local().copy_(distribute_tensor(scale, sc.device_mesh, sc.placements).to_local())
+    if master is not None:
+        master.copy_(new_master.reshape(master.shape))
+    p.copy_(new_master.reshape(p.shape).to(p.dtype))
 
 
 @torch.no_grad()
@@ -216,7 +277,7 @@ def apply_updates_(params, grads, opt_state, cfg: OptimizerConfig):
     and its step counter are overwritten; ``grads`` (fp32, or cast here)
     are read.  The leaves are plain tensors, or on a mesh DTensors: params
     placed by the plan, grads in the params' placements, the state in the
-    ZeRO-1 placements of ``opt_state_specs`` (f32 only).  Returns the
+    ZeRO-1 placements of ``opt_state_specs``.  Returns the
     metrics {"lr", "grad_norm"}."""
     step = opt_state["step"] + 1
     stepf = _whole(step).float()

@@ -14,9 +14,10 @@ and returns it with the metrics {"loss", "lr", "grad_norm"}.
 On a distributed plan (a DeviceMesh of more than one device) the model's
 parameters are DTensors, one per layer, and ``make_sharded_train_step``
 takes the state ``{"params": lm's parameters, "opt": the ZeRO-1 state of
-train_state_specs}``: each microbatch's gradients (partial sums over the
-data axes) are all-reduced over the data axes as they are added to the fp32
-sums, then ``optimizer.apply_updates_`` updates the state shards.
+train_state_specs}``, the latter in the JAX package's stacked layout: each
+microbatch's gradients (partial sums over the data axes) are all-reduced
+over the data axes as they are added to the stacked fp32 sums, then
+``optimizer.apply_updates_`` updates the state shards.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.models.convert import (jax_layout, params_from_jax, stack_params_,
                                        tensor_from_array)
-from repro_torch.models.layers import torch_dtype
+from repro_torch.models.layers import ParamSpec, torch_dtype
 from repro_torch.models.lm import LM
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates_, init_opt_state
@@ -35,7 +36,8 @@ def make_loss_fn(lm: LM):
     def loss_fn(mb):
         out = lm.forward(mb["tokens"], labels=mb["labels"],
                          embeds_prefix=mb.get("embeds_prefix"),
-                         enc_embeds=mb.get("enc_embeds"), mode="train")
+                         enc_embeds=mb.get("enc_embeds"), row_mask=mb.get("row_mask"),
+                         mode="train")
         return out["loss"]
     return loss_fn
 
@@ -118,11 +120,28 @@ def load_state_(state, tree):
         target[key].copy_(src)
 
 
+def stacked_specs(lm: LM):
+    """ParamSpec nest of the JAX package's stacked parameter tree: each
+    leaf of ``convert.jax_layout`` with its layers' leading axes
+    ("layers", never sharded) before the per-layer spec's axes."""
+    by_param = {id(lm.get_parameter(key.replace("/", "."))): spec
+                for key, spec in items(lm.param_specs())}
+    flat = {}
+    for key, (shape, slots) in jax_layout(lm).items():
+        s = by_param[id(slots[0][1])]
+        flat[key] = ParamSpec(shape, ("layers",) * (len(shape) - len(s.shape)) + s.logical,
+                              s.dtype, s.init)
+    return unflatten(flat)
+
+
 def train_state_specs(lm: LM, ocfg: OptimizerConfig):
-    """ParamSpec nest for the full train state (dry run / placements), over
-    the port's per-layer parameter specs."""
-    pspecs = lm.param_specs()
-    return {"params": pspecs, "opt": opt_mod.opt_state_specs(pspecs, lm.plan, ocfg)}
+    """ParamSpec nest for the full train state (dry run / placements): the
+    port's per-layer parameter specs, and the optimizer state over the JAX
+    package's stacked tree (``stacked_specs``), as the one-device state
+    holds it, so that ZeRO-1 cuts each leaf and the int8 state blocks it
+    as JAX's does."""
+    return {"params": lm.param_specs(),
+            "opt": opt_mod.opt_state_specs(stacked_specs(lm), lm.plan, ocfg)}
 
 
 def param_tree(lm: LM):
@@ -136,36 +155,52 @@ def param_tree(lm: LM):
 def make_sharded_train_step(lm: LM, ocfg: OptimizerConfig, *, grad_dtype: str = "bfloat16"):
     """The train step over DTensor state (see the module docstring):
     (state, batch) -> (state, metrics), ``batch`` of [accum, mb, ...]
-    DTensors sharded on the microbatch."""
+    DTensors sharded on the microbatch (``train.data.shard_batch``).  The
+    gradients are summed into the stacked leaves of the JAX tree, the
+    update runs over stacked copies of the parameters, which are then
+    written back to the model's."""
+    from torch.distributed.tensor import distribute_tensor
     gdt = torch_dtype(grad_dtype)
     loss_fn = make_loss_fn(lm)
+    layout = jax_layout(lm)
+    logical = dict(items(stacked_specs(lm)))
+
+    def stacked(key, dtype):
+        shape, slots = layout[key]
+        p = slots[0][1]
+        return distribute_tensor(torch.zeros(shape, dtype=dtype, device=p.to_local().device),
+                                 p.device_mesh, lm.plan.placements(*logical[key].logical))
 
     def train_step(state, batch):
-        params = state["params"]
-        plist = leaves(params)
         with lm.spmd():
-            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in plist]
+            gsum = {key: stacked(key, torch.float32) for key in layout}
             lsum = 0.0
             accum = batch["tokens"].shape[0]
             for a in range(accum):
                 loss = loss_fn({k: v[a] for k, v in batch.items()})
                 loss.backward()
                 with torch.no_grad():
-                    for acc, p in zip(gsum, plist):
-                        if p.grad is not None:
-                            # Partial over the data axes -> replicated: the
-                            # data-parallel all-reduce
-                            g = p.grad.to(gdt).float()
-                            acc.add_(g.redistribute(acc.device_mesh, acc.placements))
-                            p.grad = None
+                    for key, (_, slots) in layout.items():
+                        for idx, p in slots:
+                            if p.grad is not None:
+                                # Partial over the data axes -> replicated:
+                                # the data-parallel all-reduce
+                                acc = gsum[key][idx]
+                                acc.add_(p.grad.to(gdt).float().redistribute(
+                                    acc.device_mesh, acc.placements))
+                                p.grad = None
                 lsum = lsum + loss.detach().float()
             with torch.no_grad():
-                for acc in gsum:
-                    acc.div_(accum)
-            it = iter(gsum)
-            grads = tree_map(lambda _: next(it), params)
-            metrics = apply_updates_(params, grads, state["opt"], ocfg)
+                params = {}
+                for key, (_, slots) in layout.items():
+                    gsum[key].div_(accum)
+                    params[key] = stacked(key, slots[0][1].dtype)
+                    for idx, p in slots:
+                        params[key][idx].copy_(p)
+                metrics = apply_updates_(unflatten(params), unflatten(gsum), state["opt"], ocfg)
+                for key, (_, slots) in layout.items():
+                    for idx, p in slots:
+                        p.copy_(params[key][idx])
         return state, dict(metrics, loss=lsum / accum)
 
     return train_step
-

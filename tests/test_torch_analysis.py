@@ -242,6 +242,9 @@ def test_experiments_table_twin_prints_jax_table(capsys):
     for r in _records():
         if r["status"] == "ok":
             adj = table.fused_adjust(r)
+            if not r["traffic_by_tag"]:         # no tagged region (a decode of mamba2)
+                assert adj is None and jax_table.fused_adjust(r) is None
+                continue
             assert adj["hbm_bytes"] == jax_adjusted(
                 r, _jax_plan(r), jax_get_config(r["arch"]), JAX_SHAPES[r["shape"]])["hbm_bytes"]
 

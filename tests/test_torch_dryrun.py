@@ -8,29 +8,30 @@
   ids' type), and JAX's per-device
   FLOPs for internlm2-1.8b x decode_32k.
 * A long_500k cell on a full-attention arch is skipped with JAX's reason.
-* Per-device FLOPs of the four reduced cells of
-  ``tests/test_dryrun_multidevice.py:53-58`` against JAX's
-  ``hlo.account(...).flops``, committed in
+* Per-device FLOPs of the seven reduced cells (the four of
+  ``tests/test_dryrun_multidevice.py:53-58``, mamba2 train_4k on (1, 1)
+  and (2, 4), and internlm2 train_4k with the int8 optimizer state on
+  (2, 4)) against JAX's ``hlo.account(...).flops``, committed in
   ``tests/data/jax_reduced_cell_flops.json`` (compiling them takes JAX a
-  while; the slow-marked test recomputes the file).  Two match exactly;
-  the other two differ by what each explains:
-    - mamba2-1.3b x decode_32k on (2, 4): XLA partitions the B and C
-      projections (logical "state", replicated by the plan) and their
-      depthwise conv over the model axis; DTensor keeps them replicated.
-      Reduced mamba2 has D 64, G*N 16 (4 per model shard), conv width 4,
-      4 layers and 2 tokens per device: per layer the port does
-      2 x (2*2*64*16 - 2*2*64*4) more projection FLOPs and
-      2 x (2*2*16*4 - 2*2*4*4) more conv FLOPs, 26,112 in all.
+  while; the slow-marked test recomputes the file with
+  ``env -u XLA_FLAGS PYTHONPATH=src python -c "$JAX_SCRIPT" FILE``).
+  They are equal but for the mamba2 train cells, whose SSD
+  ``analysis.parity.ssd_train_delta`` derives:
+    - mamba2-1.3b x decode_32k on (2, 4): the B and C projections and
+      their depthwise conv cut over the model axis, as XLA partitions
+      them in serving.
     - internlm2-1.8b x train_4k on (2, 2, 2): the microbatch of 2
-      sequences does not divide the 4 data shards (pod x data).  XLA pads
-      it to 4 and gives each device 1 sequence; the port keeps a dim that
-      does not divide its axes replicated (``ShardingPlan.divisible``), so
-      each device runs both: exactly twice JAX's FLOPs.
+      sequences is padded to the 4 data shards (pod x data), as XLA pads
+      it, the padding row masked out of the loss.
+    - mamba2-1.3b x train_4k: K2 forward, and the plain scan rerun and
+      differentiated in the backward, against XLA's three forwards (the
+      reduced configs take remat "none").
+    - the int8-state cell holds JAX's argument bytes.
 * Per-device FLOPs of phi3.5-moe-42b-a6.6b at full width on 16x16
-  against JAX's record: train_4k equal (the experts' products recomputed
-  under "dots" as JAX recomputes them, and each shard's kv head projected
-  once for its two q heads, as XLA splits the product); decode_32k above
-  JAX's by what the docstring of ``PHI_DECODE_DELTA`` derives.
+  against JAX's record: train_4k and decode_32k equal (the experts'
+  products recomputed under "dots" as JAX recomputes them, each shard's
+  kv head projected once for its two q heads, and the decode's kv
+  projections split over the model axis, as XLA splits them).
 """
 import json
 import os
@@ -90,12 +91,9 @@ def test_cli_writes_a_record_in_jax_format(tmp_path):
 # of replicated kv weights is not over the limit), and under FSDP the kv
 # weights' embed dim is cut over the data axes.  XLA splits the kv
 # projections' contraction over the model axis (each device [8, 256] @
-# [256, 1024], then an all-reduce); DTensor runs each whole on every model
-# shard (its [128, 256] @ [256, 1024] is [8, 4096] @ [4096, 1024] in
-# FLOPs).  Per layer, for k and v, with 8 tokens per device:
-L_PHI, T_PHI, D_PHI, KV_PHI, M_PHI = 32, 8, 4096, 8 * 128, 16
-PHI_DECODE_DELTA = L_PHI * 2 * (2 * T_PHI * D_PHI * KV_PHI
-                                - 2 * T_PHI * (D_PHI // M_PHI) * KV_PHI)
+# [256, 1024], then an all-reduce), and so does the port
+# (``LM._cut_on_model``): no difference is left.
+PHI_DECODE_DELTA = 0
 
 
 @pytest.mark.parametrize("shape,delta", [("train_4k", 0), ("decode_32k", PHI_DECODE_DELTA)])
@@ -123,28 +121,51 @@ PORT_FLOPS = r"""
 import json, math
 from repro_torch.analysis.account import account
 from repro_torch.launch.cells import build_cell
+from repro_torch.launch.dryrun import memory_estimate
 from repro_torch.launch.mesh import fake_process_group, make_mesh
+from repro_torch.train.optimizer import OptimizerConfig
 cells = json.load(open(__import__("sys").argv[1]))["cells"]
 out = []
 for c in cells:
     axes = ("data", "model") if len(c["mesh"]) == 2 else ("pod", "data", "model")
     with fake_process_group(math.prod(c["mesh"])):
         mesh = make_mesh(c["mesh"], axes, "cpu")
-        cell = build_cell(c["arch"], c["shape"], mesh, reduced=True, accum=2)
-        _, acct = account(cell.run)
-    out.append({"flops": acct.flops, "collectives": sorted(acct.collective_bytes)})
+        ocfg = OptimizerConfig(state_bits=c["state_bits"]) if "state_bits" in c else None
+        cell = build_cell(c["arch"], c["shape"], mesh, reduced=True, accum=2, ocfg=ocfg)
+        res, acct = account(cell.run, track_memory=True)
+        mem = memory_estimate(cell, res, acct.peak_live_bytes)
+    out.append({"flops": acct.flops, "collectives": sorted(acct.collective_bytes),
+                "argument_bytes": mem["argument_bytes"]})
 print(json.dumps(out))
 """
 
-# port FLOPs - JAX FLOPs for reduced mamba2 decode, as the module docstring
-# derives it: per layer, for each of B and C, the projection (D -> G*N) and
-# the width-W conv at G*N channels where XLA computes G*N / |model|
-L, D, GN, GN_LOC, T_LOC, W = 4, 64, 16, 4, 2, 4
-MAMBA_DELTA = L * 2 * ((2 * T_LOC * D * GN - 2 * T_LOC * D * GN_LOC)
-                       + (2 * T_LOC * GN * W - 2 * T_LOC * GN_LOC * W))
+
+# port FLOPs - JAX FLOPs for reduced mamba2 decode on (2, 4): the B and C
+# projections and their conv cut over the model axis, as XLA cuts them
+MAMBA_DELTA = 0
+
+
+def _reduced_delta(c):
+    """parity.cell_delta of a reduced cell (remat "none": XLA's count holds
+    three forwards of the SSD in a train step)."""
+    import dataclasses
+    from repro_torch.analysis.parity import cell_delta
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.sharding.plan import make_abstract_mesh, make_plan
+    cfg = get_config(c["arch"]).reduced()
+    shape = dataclasses.replace(SHAPES[c["shape"]], seq_len=64, global_batch=4)
+    axes = ("data", "model") if len(c["mesh"]) == 2 else ("pod", "data", "model")
+    plan = make_plan(cfg, make_abstract_mesh(c["mesh"], axes))
+    return cell_delta(cfg, shape, plan, accum=2)
 
 
 def test_reduced_cells_flops_match_jax():
+    """Per-device FLOPs of the reduced cells equal JAX's, but for the
+    mamba2 train cells' SSD, whose difference ``analysis.parity``
+    derives; the pod cell's microbatch of 2 is padded to its 4 data
+    shards, as XLA pads it; the int8-state cell's argument bytes equal
+    JAX's but for the token ids (int64 in the port, int32 in JAX: 4 extra
+    bytes for each of the [2, 1, 64] local tokens and labels)."""
     with open(JAX_FLOPS) as f:
         jax_cells = json.load(f)["cells"]
     res = subprocess.run([sys.executable, "-c", PORT_FLOPS, JAX_FLOPS],
@@ -152,10 +173,17 @@ def test_reduced_cells_flops_match_jax():
                          text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     port = json.loads(res.stdout.strip().splitlines()[-1])
-    (il, phi, mamba, pod) = [(j["flops"], p["flops"]) for j, p in zip(jax_cells, port)]
+    assert len(port) == len(jax_cells) == 7
+    for j, p in zip(jax_cells, port):
+        if "state_bits" in j:
+            assert p["argument_bytes"] - j["argument_bytes"] == 2 * (2 * 1 * 64) * 4, (j, p)
+        else:
+            assert p["flops"] - j["flops"] == _reduced_delta(j), (j, p)
+    assert [_reduced_delta(j) for j in jax_cells[4:6]] == [7995392.0, 1196032.0]
+    (il, phi, mamba, pod) = [(j["flops"], p["flops"]) for j, p in zip(jax_cells[:4], port)]
     assert il[1] == il[0] and phi[1] == phi[0]
-    assert mamba[1] - mamba[0] == MAMBA_DELTA
-    assert pod[1] == 2 * pod[0]
+    assert mamba[1] - mamba[0] == MAMBA_DELTA == 0
+    assert pod[1] == pod[0]
     # data-parallel training all-reduces (tests/test_dryrun_multidevice.py:83-84)
     for p in (port[0], port[1], port[3]):
         assert "all-reduce" in p["collectives"]
@@ -168,15 +196,22 @@ import json, sys
 from repro.analysis.hlo import account
 from repro.launch.cells import build_cell
 from repro.launch.mesh import make_mesh
+from repro.train.optimizer import OptimizerConfig
 out = []
 for c in json.load(open(sys.argv[1]))["cells"]:
     axes = ("data", "model") if len(c["mesh"]) == 2 else ("pod", "data", "model")
     mesh = make_mesh(tuple(c["mesh"]), axes)
+    ocfg = OptimizerConfig(state_bits=c["state_bits"]) if "state_bits" in c else None
     with mesh:
-        cell = build_cell(c["arch"], c["shape"], mesh, reduced=True, accum=2)
-        acct = account(cell.lower().compile().as_text())
-    out.append({"arch": c["arch"], "shape": c["shape"], "mesh": c["mesh"],
-                "flops": acct.flops, "collectives": sorted(acct.collective_bytes)})
+        cell = build_cell(c["arch"], c["shape"], mesh, reduced=True, accum=2, ocfg=ocfg)
+        compiled = cell.lower().compile()
+        acct = account(compiled.as_text())
+    rec = {"arch": c["arch"], "shape": c["shape"], "mesh": c["mesh"],
+           "flops": acct.flops, "collectives": sorted(acct.collective_bytes)}
+    if "state_bits" in c:
+        rec["state_bits"] = c["state_bits"]
+        rec["argument_bytes"] = compiled.memory_analysis().argument_size_in_bytes
+    out.append(rec)
 print(json.dumps(out))
 """
 
