@@ -13,22 +13,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    variant's dynamic shared memory and blocks per SM;
 3. kernels: hold each kernel (K1 flash attention, K2 SSD scan) against its
    plain PyTorch version on the card, every f32 case beside its bf16 twin
-   (bf16 takes the tensor-core variant "tc", f32 the CUDA-core "fma"); at
+   (bf16 takes a tensor-core variant: K1 "wg", wgmma and TMA, at hd 64 and
+   128, where K1's mma.sync "tc" kernel is held on the same inputs too, and
+   "tc" at the other multiples of 16; f32 takes the CUDA-core "fma"); at
    K2's serve shape, split its error into operand rounding (y written in
    f32; held to half the tolerance) and output rounding, beside the "fma"
    kernel and the tc kernel on bf16 operands only, on the same inputs;
 4. serve: ``repro_torch.launch.serve`` on internlm2-1.8b at full width
    (24 layers, seeded random bf16 weights), batch 4, prompt 1024, 32 new
    tokens, flash prefill; count the kernel launches of that run by variant
-   (24 tensor-core K1), check the logits, prefill->decode consistency, and
+   (24 K1 "wg"), check the logits, prefill->decode consistency, and
    flash against dot prefill;
 5. serve, SSM: the same entry point on mamba2-1.3b at full width (48
    layers), batch 4, prompt 1024, 32 new tokens; every prefill layer's SSD
    goes through K2; count the launches by variant (48 tensor-core K2, none
    in decode), check the tokens, the logits and prefill->decode consistency
    (K2 prefill against the plain decode recurrence);
-6. times: kernel (and, on the same inputs, its CUDA-core variant), plain
-   version, library call and serve times, as JSON.  ``ms`` is the median of
+6. times: kernel (and, on the same inputs, its other variants: K1 "tc" and
+   "fma", K2 "fma"), plain version, library call and serve times, as JSON.
+   ``ms`` is the median of
    single calls, each timed alone (the host's launch work included);
    ``device_ms`` times calls enqueued back to back, which hides it;
 7. cb: ElastiBench's own pipeline on the kernel-duet suite
@@ -95,9 +98,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    Each run also profiles one warm prefill and one decode step
    (torch.profiler): device ms, its share of the host-clock time, and the
    five longest kernels.
-   (e) K1 at the whisper encoder and llava prefill shapes and K2 at
-   Jamba's mixer shape against their plain versions, then timed beside
-   SDPA and their bounds.  The ``families`` JSON line gives each run's
+   (e) K1 at the whisper encoder and llava prefill shapes ("wg" and "tc")
+   and K2 at Jamba's mixer shape against their plain versions, then timed
+   beside SDPA and their bounds.  The ``families`` JSON line gives each run's
    times, peak memory, launches and checks.
 12. train: ``repro_torch.launch.train.main`` in this process, as a user
    starts it, seeded random bf16 weights, each model freed before the
@@ -151,7 +154,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 14. cells and the dry run.  (a) ``launch.cells.build_cell`` on a real 1x1
    mesh on the card, full width, seeded random bf16 weights:
    internlm2-1.8b at prefill_32k (batch cut from 32 to 1, flash attention:
-   K1 "tc" 24 times at S = 32,768), mamba2-1.3b at prefill_32k (batch 1: K2
+   K1 "wg" 24 times at S = 32,768), mamba2-1.3b at prefill_32k (batch 1: K2
    "tc" 48 times), internlm2-1.8b at decode_32k (int8 cache, batch cut from
    128 to 32: ~53 GB of cache) and mamba2-1.3b at decode_32k (batch 128).
    Each cell runs once with the launch counts set to 0 just before and read
@@ -163,8 +166,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    bound's time at peak, JAX's definition) and ``achieved_fraction`` (over
    the warm time).  Before the cells, K1 and K2 at the prefill cells'
    shapes against their plain versions (bf16 tolerances, row by row as in
-   11 (e); the plain K1 a block of 2,048 query rows at a time), timed
-   beside their bounds and, for K1, SDPA.  (b) ``python -m
+   11 (e); K1 "wg" and "tc"; the plain K1 a block of 2,048 query rows at a
+   time), timed beside their bounds and, for K1, SDPA.  (b) ``python -m
    repro_torch.launch.dryrun`` on the host (meta DTensors over a fake
    process group, no card), one single-threaded process per cell, all six
    started after the last timed phase (so that no host time above is
@@ -210,6 +213,7 @@ SERVE_ARGS = ["--arch", "internlm2-1.8b", "--batch", "4", "--prompt-len", "1024"
               "--gen", "32", "--attention-impl", "flash", "--kv-dtype", "bfloat16",
               "--seed", "0", "--device", "cuda"]
 SERVE_SHAPE = dict(B=4, Sq=1024, Skv=1024, H=16, K=8, hd=128)   # internlm2-1.8b
+_K1_DEFAULTS = dict(causal=True, window=0, kv_valid=None, softmax_scale=None)
 SSM_SERVE_ARGS = ["--arch", "mamba2-1.3b", "--batch", "4", "--prompt-len", "1024",
                   "--gen", "32", "--seed", "0", "--device", "cuda"]
 SSM_SERVE_SHAPE = dict(B=4, S=1024, H=64, G=1, P=64, N=128)     # mamba2-1.3b
@@ -303,10 +307,11 @@ def kernel_occupancy():
     the head dims of the serve shapes and at the largest ones taken."""
     from repro_torch.kernels import flash_attention, ssd_scan
     out = {}
-    for key, query, dims in [("K1", flash_attention.occupancy, (128, 256)),
-                             ("K2", ssd_scan.occupancy, (64, 128))]:
-        for variant in ("tc", "fma"):
-            for dim in dims:
+    for key, query, dims in [("K1", flash_attention.occupancy,
+                              {"wg": (64, 128), "tc": (128, 256), "fma": (128, 256)}),
+                             ("K2", ssd_scan.occupancy, {"tc": (64, 128), "fma": (64, 128)})]:
+        for variant, variant_dims in dims.items():
+            for dim in variant_dims:
                 smem, blocks = query(variant, dim)
                 out[f"{key} {variant} {'hd' if key == 'K1' else 'P'}={dim}"] = {
                     "smem_bytes": smem, "blocks_per_sm": blocks}
@@ -334,10 +339,11 @@ def _agreement(a, b, tol):
 
 
 def check_k1():
-    """K1 against its plain version on the card; returns the serve-shape
-    error and its share of the tolerance."""
+    """K1 against its plain version on the card; where the call takes "wg",
+    the "tc" kernel on the same inputs too.  Returns the serve-shape error
+    and its share of the tolerance."""
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention_hmajor,
+    from repro_torch.kernels.flash_attention import (_launch, flash_attention_hmajor,
                                                      flash_attention_hmajor_plain, k1_variant)
     f32, bf16 = torch.float32, torch.bfloat16
     twins = []   # (name, shape, kwargs): each runs in f32 at 2e-5 and in bf16 at 3e-2
@@ -359,6 +365,13 @@ def check_k1():
         cases.append((f"bf16 {name}", shape, bf16, kw, 3e-2))
     cases.append(("bf16 (1,128,128,4,4,64)", (1, 128, 128, 4, 4, 64), bf16,
                   dict(causal=True), 3e-2))
+    # the ragged, windowed and kv_valid cases again at the head dims "wg" takes
+    cases.append(("bf16 ragged windowed GQA hd=128", (2, 300, 300, 8, 2, 128), bf16,
+                  dict(causal=True, window=37), 3e-2))
+    cases.append(("bf16 ragged kv_valid hd=64", (2, 77, 200, 4, 2, 64), bf16,
+                  dict(causal=False, kv_valid=150), 3e-2))
+    cases.append(("bf16 ragged kv_valid causal hd=128", (1, 257, 129, 2, 2, 128), bf16,
+                  dict(causal=True, kv_valid=100), 3e-2))
     s = SERVE_SHAPE
     serve_shape = (s["B"], s["Sq"], s["Skv"], s["H"], s["K"], s["hd"])
     cases.append(("bf16 serve shape", serve_shape, bf16, dict(causal=True), 3e-2))
@@ -375,17 +388,22 @@ def check_k1():
         torch.cuda.synchronize()
         if flash_attention_hmajor.launches_by_variant[variant] != before + 1:
             fail(f"K1 {name}: the {variant} kernel was not the one launched")
-        ref = flash_attention_hmajor_plain(q, k, v, **kw)
-        if out.dtype != dtype or out.shape != q.shape:
-            fail(f"K1 {name}: got {out.dtype} {tuple(out.shape)}")
-        a = out.float()
-        max_err, share, bad = _agreement(a, ref.float(), tol)
-        log(f"K1 {name} [{variant}]: max_abs_err {max_err:.3e} (atol=rtol={tol}, "
-            f"share {share:.3f}) {'ok' if bad == 0 else f'{bad} entries out of tolerance'}")
-        if bad or not torch.isfinite(a).all():
-            fail(f"K1 disagrees with its plain version on {name}")
-        if name == "bf16 serve shape":
-            serve = max_err, share
+        ref = flash_attention_hmajor_plain(q, k, v, **kw).float()
+        runs = [(variant, out)]
+        if variant == "wg":     # the kernel "wg" took over, held on the same inputs
+            runs.append(("tc", _launch(q, k, v, "tc", **{**_K1_DEFAULTS, **kw})))
+            torch.cuda.synchronize()
+        for run_variant, got in runs:
+            if got.dtype != dtype or got.shape != q.shape:
+                fail(f"K1 {name} [{run_variant}]: got {got.dtype} {tuple(got.shape)}")
+            a = got.float()
+            max_err, share, bad = _agreement(a, ref, tol)
+            log(f"K1 {name} [{run_variant}]: max_abs_err {max_err:.3e} (atol=rtol={tol}, "
+                f"share {share:.3f}) {'ok' if bad == 0 else f'{bad} entries out of tolerance'}")
+            if bad or not torch.isfinite(a).all():
+                fail(f"K1 ({run_variant}) disagrees with its plain version on {name}")
+            if name == "bf16 serve shape" and run_variant == variant:
+                serve = max_err, share
     return serve
 
 
@@ -396,7 +414,7 @@ def _reset_launches():
     wrappers = {"K1": flash_attention_hmajor, "K2": ssd_scan_hmajor}
     for w in wrappers.values():
         w.launches = 0
-        w.launches_by_variant.update(tc=0, fma=0)
+        w.launches_by_variant.update(dict.fromkeys(w.launches_by_variant, 0))
     return wrappers
 
 
@@ -544,11 +562,11 @@ def run_serve():
         f"K={cfg.num_kv_heads} hd={cfg.head_dim} F={cfg.d_ff} V={cfg.vocab_size}: "
         f"prefill {res.prefill_s*1e3:.1f} ms, decode "
         f"{res.decode_s/(GEN-1)*1e3:.2f} ms/token, launches {counts} {by_variant}")
-    if (launches != cfg.num_layers or by_variant["K1"]["tc"] != cfg.num_layers
+    if (launches != cfg.num_layers or by_variant["K1"]["wg"] != cfg.num_layers
             or counts["K2"] != 0):
         fail(f"launches {counts} {by_variant} in the internlm2 serve run, want K1 "
-             f"{cfg.num_layers} on the tensor cores (one per layer of the prefill) and K2 0")
-    return res, launches
+             f"{cfg.num_layers} on wgmma (\"wg\", one per layer of the prefill) and K2 0")
+    return res, launches, by_variant
 
 
 def run_ssm_serve():
@@ -567,7 +585,7 @@ def run_ssm_serve():
         fail(f"launches {counts} {by_variant} in the mamba2 serve run, want K2 "
              f"{cfg.num_layers} on the tensor cores (one per layer of the prefill, none in "
              "decode) and K1 0")
-    return res, launches
+    return res, launches, by_variant
 
 
 def _consistency(lm, prompts, nxt, kv_dtype, inputs=None):
@@ -759,30 +777,36 @@ def _bound(flops, nbytes, dtype="bfloat16"):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_k1_at(B, Sq, Skv, H, K, hd, causal=True, seed=99, fma=True, plain=None):
-    """K1 (tc) on bf16 inputs at one shape: its times, its CUDA-core variant
-    on the same inputs (``fma``), the plain version (``plain``, default the
-    module's; its time is the median of 3 calls when given), SDPA and the
-    bound."""
+def time_k1_at(B, Sq, Skv, H, K, hd, causal=True, seed=99, fma_calls=25, plain=None):
+    """K1 on bf16 inputs at one shape: the variant the serve path takes
+    (``variant``, "wg" at hd 64/128) through the public wrapper, its times;
+    on the same inputs the "tc" kernel where "wg" took over, the CUDA-core
+    "fma" kernel (median of ``fma_calls`` single calls), the plain version
+    (``plain``, default the module's; its time is the median of 3 calls when
+    given), SDPA and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_launch, flash_attention_hmajor,
-                                                     flash_attention_hmajor_plain)
+                                                     flash_attention_hmajor_plain, k1_variant)
     q, k, v = _qkv(B, Sq, Skv, H, K, hd, torch.bfloat16, seed=seed)
+    kw = dict(_K1_DEFAULTS, causal=causal)
+    variant = k1_variant(q.dtype, hd)
     kernel = lambda: flash_attention_hmajor(q, k, v, causal=causal)
     library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
-    kernel_ms, device_ms = _time_ms(kernel), _device_ms(kernel)
-    fma_ms = _time_ms(lambda: _launch(q, k, v, "fma", causal=causal, window=0, kv_valid=None,
-                                      softmax_scale=None)) if fma else None
-    plain_ms = (_time_ms(lambda: flash_attention_hmajor_plain(q, k, v, causal=causal))
-                if plain is None else _time_ms(lambda: plain(q, k, v, causal=causal), n=3,
-                                               warmup=1))
-    library_ms, library_device_ms = _time_ms(library), _device_ms(library)
+    out = dict(variant=variant, ms=_time_ms(kernel), device_ms=_device_ms(kernel))
+    if variant == "wg":
+        tc = lambda: _launch(q, k, v, "tc", **kw)
+        out.update(tc_ms=_time_ms(tc), tc_device_ms=_device_ms(tc))
+    out["fma_ms"] = _time_ms(lambda: _launch(q, k, v, "fma", **kw), n=fma_calls,
+                             warmup=min(3, fma_calls))
+    out["plain_ms"] = (_time_ms(lambda: flash_attention_hmajor_plain(q, k, v, causal=causal))
+                       if plain is None else _time_ms(lambda: plain(q, k, v, causal=causal), n=3,
+                                                      warmup=1))
+    out.update(library_ms=_time_ms(library), library_device_ms=_device_ms(library))
     flops, nbytes = _k1_work(q, k, causal)
     bound_ms, bound_by = _bound(flops, nbytes)
-    return dict(ms=kernel_ms, device_ms=device_ms, fma_ms=fma_ms, plain_ms=plain_ms,
-                library_ms=library_ms, library_device_ms=library_device_ms,
-                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
+    return dict(out, bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+                device_tflops=flops / out["device_ms"] / 1e9)
 
 
 def time_k1():
@@ -1364,6 +1388,7 @@ def run_family(name):
     """One phase 11 run: serve, the launch and shape checks, the model-level
     checks, times and peak memory; frees the model before returning."""
     import torch
+    from repro_torch.kernels.flash_attention import k1_variant
     res, counts, by_variant, calls, positions = _serve_family(name)
     cfg = res.lm.cfg
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -1371,10 +1396,11 @@ def run_family(name):
     n_attn = cfg.num_layers // cfg.hybrid.attn_period if cfg.hybrid else cfg.num_layers
     want_k1 = n_attn + (cfg.encoder.num_layers if cfg.encoder else 0)
     want_k2 = cfg.num_layers - n_attn if cfg.hybrid else 0
-    if (counts["K1"] != want_k1 or by_variant["K1"]["tc"] != want_k1
+    k1v = k1_variant(torch.bfloat16, cfg.head_dim)   # "wg" at hd 64/128, "tc" at Jamba's 16
+    if (counts["K1"] != want_k1 or by_variant["K1"][k1v] != want_k1
             or counts["K2"] != want_k2 or by_variant["K2"]["tc"] != want_k2):
-        fail(f"{cfg.name}: launches {counts} {by_variant}, want K1 {want_k1} and K2 {want_k2}, "
-             "all on the tensor cores, in one prefill and none in decode")
+        fail(f"{cfg.name}: launches {counts} {by_variant}, want K1 {want_k1} ({k1v}) and K2 "
+             f"{want_k2} (tc), all on the tensor cores, in one prefill and none in decode")
     S = res.prompts.shape[1] + cfg.num_image_tokens
     self_calls = [c for c in calls if c[1][1] == c[2][1]]
     enc_calls = [c for c in calls if not c[0]]
@@ -1443,6 +1469,27 @@ def _row_share(a, b, tol):
     return float((err / (tol * b.norm(dim=-1)).clamp_min(1e-30)).max())
 
 
+def _hold(label, pairs, tol, rows):
+    """Each (kernel output, plain output) pair within atol = rtol = ``tol``,
+    and with ``rows`` each output row within ``tol`` of its own norm
+    (``_row_share``); fails otherwise.  Returns the largest error and shares."""
+    import torch
+    err = share = row = 0.0
+    for a, b in pairs:
+        e, sh, bad = _agreement(a.float(), b.float(), tol)
+        if bad or not torch.isfinite(a.float()).all():
+            fail(f"{label}: {bad} entries out of atol=rtol={tol}")
+        err, share = max(err, e), max(share, sh)
+        if rows:
+            row = max(row, _row_share(a.float(), b.float(), tol))
+    held = {"max_abs_err": err, "tolerance": tol, "tolerance_share": share}
+    if rows:
+        held["row_tolerance_share"] = row
+        if not row <= 1.0:
+            fail(f"{label}: a row's error is {row:.3f} x {tol} of its norm")
+    return held
+
+
 def _mamba2_train_ssd_inputs():
     """K2's inputs as a mamba2-1.3b train microbatch gives them: the forward
     of the full-depth model (seeded random bf16 weights, as phase 12 (b))
@@ -1485,12 +1532,13 @@ def check_new_shapes():
     """Phase 11 (e): K1 and K2 at the shapes the new families and the mamba2
     train microbatch give them, each against its plain version on the card
     (phases 2-3's tolerances, with the share used; in bf16 each output row
-    also within the tolerance of its own norm, ``_row_share``), then timed
-    as ``time_k1``/``time_k2`` time them.  The train shape holds K2 on the
-    inputs the model gives it (its f32 case on the same inputs cast up)."""
+    also within the tolerance of its own norm, ``_row_share``), K1's "tc"
+    kernel too where "wg" serves, then timed as ``time_k1``/``time_k2`` time
+    them.  The train shape holds K2 on the inputs the model gives it (its
+    f32 case on the same inputs cast up)."""
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention_hmajor,
-                                                     flash_attention_hmajor_plain)
+    from repro_torch.kernels.flash_attention import (_launch, flash_attention_hmajor,
+                                                     flash_attention_hmajor_plain, k1_variant)
     from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
     out = []
     for i, (label, kernel, shape, dtypes, inputs) in enumerate(NEW_SHAPES):
@@ -1508,8 +1556,10 @@ def check_new_shapes():
                 kw = dict(causal=shape["causal"])
                 q, k, v = _qkv(shape["B"], shape["Sq"], shape["Skv"], shape["H"], shape["K"],
                                shape["hd"], dt, seed=300 + i)
-                got = flash_attention_hmajor(q, k, v, **kw)
-                pairs = [(got, flash_attention_hmajor_plain(q, k, v, **kw))]
+                ref = flash_attention_hmajor_plain(q, k, v, **kw)
+                pairs = [(flash_attention_hmajor(q, k, v, **kw), ref)]
+                if k1_variant(dt, shape["hd"]) == "wg":
+                    tc_pair = (_launch(q, k, v, "tc", **{**_K1_DEFAULTS, **kw}), ref)
                 del q, k, v
             else:
                 if inputs == "train":
@@ -1523,25 +1573,16 @@ def check_new_shapes():
                                  ssd_scan_hmajor_plain(x, dt_, A, Bi, Ci, chunk=256)))
                 del x, dt_, A, Bi, Ci
             torch.cuda.synchronize()
-            err = share = row = 0.0
-            for a, b in pairs:
-                e, sh, bad = _agreement(a.float(), b.float(), tol)
-                if bad or not torch.isfinite(a.float()).all():
-                    fail(f"{label} {dtype}: {bad} entries out of atol=rtol={tol}")
-                err, share = max(err, e), max(share, sh)
-                if dtype == "bfloat16":
-                    row = max(row, _row_share(a.float(), b.float(), tol))
-            entry[dtype] = {"max_abs_err": err, "tolerance": tol, "tolerance_share": share}
-            if dtype == "bfloat16":
-                entry[dtype]["row_tolerance_share"] = row
-                if not row <= 1.0:
-                    fail(f"{label} {dtype}: a row's error is {row:.3f} x {tol} of its norm")
+            entry[dtype] = _hold(f"{label} {dtype}", pairs, tol, rows=dtype == "bfloat16")
+            if kernel == "K1" and k1_variant(dt, shape["hd"]) == "wg":
+                entry[dtype]["tc"] = _hold(f"{label} {dtype} [tc]", [tc_pair], tol, rows=True)
+                del tc_pair
             del pairs
             torch.cuda.empty_cache()
         train_inputs = None
         if kernel == "K1":
             t = time_k1_at(shape["B"], shape["Sq"], shape["Skv"], shape["H"], shape["K"],
-                           shape["hd"], causal=shape["causal"], seed=310 + i, fma=False)
+                           shape["hd"], causal=shape["causal"], seed=310 + i, fma_calls=5)
         else:
             t = time_k2_at(shape["B"], shape["S"], shape["H"], shape["G"], shape["P"], shape["N"],
                            seed=310 + i, variants=False)
@@ -2264,15 +2305,18 @@ def _serve_times(res, prefill_warm_ms, checks):
             "tok_per_s": 4 * (GEN - 1) / res.decode_s, "checks": checks}
 
 
-_TIME_KEYS = ("ms", "device_ms", "fma_ms", "plain_ms", "library_ms", "library_device_ms",
+_TIME_KEYS = ("variant", "ms", "device_ms", "tc_ms", "tc_device_ms", "fma_ms", "plain_ms",
+              "library_ms", "library_device_ms", "device_tflops",
               "bound_ms", "bound_by")
 
 
-def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches,
+def _kernel_line(name, source, replaces, launches, variants, duet_launches, cli_launches,
                  obs_launches, max_abs_err, t, family_launches, shapes, train_launches,
                  bench_launches, serve_batch_launches, cell_launches):
-    """One kernel of the serve paths: its tensor-core variant, which the bf16
-    main path runs; ``fma_ms`` is its CUDA-core variant on the same inputs.
+    """One kernel of the serve paths: ``variants`` are its variants and their
+    launches in the main path's serve run, and the times are those of the
+    variant that run takes; ``tc_ms`` (K1, where that is "wg") and ``fma_ms``
+    are its other variants on the same inputs.
     ``launches`` counts the serve run, ``duet_launches`` the pipeline run of
     phase 7, ``cli_launches`` the command line's kernel-suite run of phase 8,
     ``obs_launches`` the observed kernel-suite run of phase 10, and
@@ -2281,24 +2325,27 @@ def _kernel_line(name, source, replaces, launches, duet_launches, cli_launches,
     phase 13's ``benchmarks.run`` and ``serve_batch_launches`` its
     serve_batch runs by arch, ``cell_launches`` phase 14's cell runs; ``shapes``
     holds the kernel at phase 11's new shapes and phase 14's cell shapes."""
-    return {"name": name, "route": "cuda", "variant": "tc", "source": source,
+    return {"name": name, "route": "cuda", "source": source, "variants": variants,
             "replaces": replaces, "launches": launches, "duet_launches": duet_launches,
             "cli_launches": cli_launches, "obs_launches": obs_launches,
             **{f"{fam}_launches": n for fam, n in family_launches.items()},
             "train_launches": train_launches, "bench_launches": bench_launches,
             "serve_batch_launches": serve_batch_launches, "cell_launches": cell_launches,
-            "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS}, "shapes": shapes}
+            "max_abs_err": max_abs_err, **{k: t[k] for k in _TIME_KEYS if k in t},
+            "shapes": shapes}
 
 
 # ------------------------------------------- phase 14: cells and the dry run
 # (a) cells built by ``launch.cells.build_cell`` on a real 1x1 mesh on the
 # card, full width, seeded random bf16 weights: (arch, shape, global batch
-# or None for the shape's own, config overrides, launches of one run)
+# or None for the shape's own, config overrides, launches of one run by
+# kernel and variant)
 CELL_RUNS = [
-    ("internlm2-1.8b", "prefill_32k", 1, {"attention_impl": "flash"}, {"K1": 24, "K2": 0}),
-    ("mamba2-1.3b", "prefill_32k", 1, None, {"K1": 0, "K2": 48}),
-    ("internlm2-1.8b", "decode_32k", 32, None, {"K1": 0, "K2": 0}),
-    ("mamba2-1.3b", "decode_32k", None, None, {"K1": 0, "K2": 0}),
+    ("internlm2-1.8b", "prefill_32k", 1, {"attention_impl": "flash"},
+     {"K1": {"wg": 24}, "K2": {}}),
+    ("mamba2-1.3b", "prefill_32k", 1, None, {"K1": {}, "K2": {"tc": 48}}),
+    ("internlm2-1.8b", "decode_32k", 32, None, {"K1": {}, "K2": {}}),
+    ("mamba2-1.3b", "decode_32k", None, None, {"K1": {}, "K2": {}}),
 ]
 # K1 and K2 at the prefill_32k cells' shapes (batch 1)
 CELL_SHAPES = [
@@ -2468,20 +2515,28 @@ def _k1_plain_rows(q, k, v, causal=True, block=2048):
 def check_cell_shapes():
     """Phase 14 (a), kernels: K1 and K2 at the prefill_32k cells' shapes
     against their plain versions (bf16 tolerances, each output row also
-    within the tolerance of its norm, as phase 11 (e)), then timed (the
-    plain K1 a block of rows at a time, ``_k1_plain_rows``)."""
+    within the tolerance of its norm, as phase 11 (e); K1's "tc" kernel
+    too, where "wg" serves), then timed (the plain K1 a block of rows at a
+    time, ``_k1_plain_rows``)."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention_hmajor
+    from repro_torch.kernels.flash_attention import (_launch, flash_attention_hmajor,
+                                                     k1_variant)
     from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
     out = []
     for i, (label, kernel, shape, _, _) in enumerate(CELL_SHAPES):
         tol = KERNEL_TOL[(kernel, "bfloat16")]
+        tc_held = None
         if kernel == "K1":
             q, k, v = _qkv(shape["B"], shape["Sq"], shape["Skv"], shape["H"], shape["K"],
                            shape["hd"], torch.bfloat16, seed=400 + i)
-            pairs = [(flash_attention_hmajor(q, k, v, causal=True),
-                      _k1_plain_rows(q, k, v, causal=True))]
-            del q, k, v
+            ref = _k1_plain_rows(q, k, v, causal=True)
+            pairs = [(flash_attention_hmajor(q, k, v, causal=True), ref)]
+            if k1_variant(q.dtype, shape["hd"]) == "wg":
+                tc = _launch(q, k, v, "tc", **_K1_DEFAULTS)
+                torch.cuda.synchronize()
+                tc_held = _hold(f"{label} [tc]", [(tc, ref)], tol, rows=True)
+                del tc
+            del q, k, v, ref
         else:
             x, dt_, A, Bi, Ci = _ssd_inputs(shape["B"], shape["S"], shape["H"], shape["G"],
                                             shape["P"], shape["N"], torch.bfloat16,
@@ -2490,26 +2545,18 @@ def check_cell_shapes():
                              ssd_scan_hmajor_plain(x, dt_, A, Bi, Ci, chunk=256)))
             del x, dt_, A, Bi, Ci
         torch.cuda.synchronize()
-        err = share = row = 0.0
-        for a, b in pairs:
-            e, sh, bad = _agreement(a.float(), b.float(), tol)
-            if bad or not torch.isfinite(a.float()).all():
-                fail(f"{label}: {bad} entries out of atol=rtol={tol}")
-            err, share = max(err, e), max(share, sh)
-            row = max(row, _row_share(a.float(), b.float(), tol))
-        if not row <= 1.0:
-            fail(f"{label}: a row's error is {row:.3f} x {tol} of its norm")
+        held = _hold(label, pairs, tol, rows=True)
         del pairs
         torch.cuda.empty_cache()
         if kernel == "K1":
             t = time_k1_at(shape["B"], shape["Sq"], shape["Skv"], shape["H"], shape["K"],
-                           shape["hd"], causal=True, seed=410 + i, fma=False,
+                           shape["hd"], causal=True, seed=410 + i, fma_calls=3,
                            plain=_k1_plain_rows)
         else:
             t = time_k2_at(shape["B"], shape["S"], shape["H"], shape["G"], shape["P"],
                            shape["N"], seed=410 + i, variants=False)
-        entry = {"name": label, "shape": shape, "max_abs_err": err, "tolerance": tol,
-                 "tolerance_share": share, "row_tolerance_share": row,
+        entry = {"name": label, "shape": shape, **held,
+                 **({"tc": tc_held} if tc_held else {}),
                  **{k: t[k] for k in _TIME_KEYS + ("flops", "bytes") if k in t}}
         torch.cuda.empty_cache()
         log(f"{label}: {json.dumps(entry)}")
@@ -2555,8 +2602,9 @@ def run_cell_on_card(arch, shape, batch, overrides, want, card):
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     by_variant = {k: dict(w.launches_by_variant) for k, w in wrappers.items()}
-    if launches != want or any(by_variant[k]["fma"] for k in by_variant):
-        fail(f"cell {arch} x {shape}: launches {by_variant}, want {want} (tc)")
+    launched = {k: {v: n for v, n in by.items() if n} for k, by in by_variant.items()}
+    if launched != want or any(launches[k] != sum(want[k].values()) for k in want):
+        fail(f"cell {arch} x {shape}: launches {by_variant}, want {want}")
     logits = out["logits"] if cell.kind == "prefill" else out[0]
     B = cell.shape.global_batch
     if tuple(logits.shape[:2]) != (B, 1) or not torch.isfinite(logits.float()).all():
@@ -2577,7 +2625,8 @@ def run_cell_on_card(arch, shape, batch, overrides, want, card):
                         device=torch.cuda.get_device_name(0))
     entry = {"arch": arch, "shape": shape, "batch": B, "seq": cell.shape.seq_len,
              "kv_cache_dtype": cell.shape.kv_cache_dtype, "overrides": overrides,
-             "launches": launches, "build_s": build_s, "warm_ms": warm_ms,
+             "launches": launches, "launches_by_variant": launched, "build_s": build_s,
+             "warm_ms": warm_ms,
              "peak_gb": peak / 1e9, "flops": acct.flops, "meta_flops": meta_acct.flops,
              "traffic_bytes": acct.traffic_bytes, "traffic_by_tag": acct.traffic_by_tag,
              "kernel_calls": acct.kernel_calls, "compute_s": terms.compute_s,
@@ -2617,14 +2666,14 @@ def main():
     k1_err, k1_share = check_k1()
     (k2_err, k2_share), k2_rounding_split = check_k2()
 
-    res, k1_launches = run_serve()
+    res, k1_launches, serve_variants = run_serve()
     checks = check_serve(res)
     serve = _serve_times(res, time_prefill(res.lm, res.prompts), checks)
     del res
     k1 = time_k1()
 
     torch.cuda.empty_cache()
-    res, k2_launches = run_ssm_serve()
+    res, k2_launches, ssm_variants = run_ssm_serve()
     checks = check_ssm_serve(res)
     ssm_serve = _serve_times(res, time_prefill(res.lm, res.prompts), checks)
     del res
@@ -2680,12 +2729,12 @@ def main():
         "build_s": build_s,
         "occupancy": occupancy,
         "k1_serve_shape": {"max_abs_err": k1_err, "tolerance_share": k1_share,
-                           **{k: k1[k] for k in _TIME_KEYS + ("flops", "bytes")}},
+                           **{k: k1[k] for k in _TIME_KEYS + ("flops", "bytes") if k in k1}},
         "k2_serve_shape": {"max_abs_err": k2_err, "tolerance_share": k2_share,
                            "rounding": k2_rounding_split,
                            **{k: k2[k] for k in _TIME_KEYS + (
                                "bf16_operands_ms", "bf16_operands_device_ms", "flops",
-                               "bytes")}},
+                               "bytes") if k in k2}},
         "serve": serve,
         "ssm_serve": ssm_serve,
         "wall_s": time.perf_counter() - t_start,
@@ -2698,13 +2747,13 @@ def main():
     print(json.dumps({"kernels": [
         _kernel_line("K1 flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:32", k1_launches,
-                     duet_launches["K1"], cli_launches["K1"], obs_launches["K1"], k1_err, k1,
+                     serve_variants["K1"], duet_launches["K1"], cli_launches["K1"], obs_launches["K1"], k1_err, k1,
                      fam_launches["K1"], shapes["K1"], train_launches["K1"],
                      bench_launches["K1"], {a: n["K1"] for a, n in sb_launches.items()},
                      cell_launches["K1"]),
         _kernel_line("K2 ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:31", k2_launches,
-                     duet_launches["K2"], cli_launches["K2"], obs_launches["K2"], k2_err, k2,
+                     ssm_variants["K2"], duet_launches["K2"], cli_launches["K2"], obs_launches["K2"], k2_err, k2,
                      fam_launches["K2"], shapes["K2"], train_launches["K2"],
                      bench_launches["K2"], {a: n["K2"] for a, n in sb_launches.items()},
                      cell_launches["K2"]),

@@ -4,9 +4,11 @@ Layout: q [B, H, Sq, hd]; k, v [B, K, Skv, hd]; out [B, H, Sq, hd].  The
 kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel of
 ``repro.kernels.flash_attention``: online softmax with fp32 running max,
 sum and accumulator, GQA by index, causal / sliding-window / kv_valid masks
-fused, fully masked kv tiles skipped.  It has two variants: bf16 at a head
-dim that is a multiple of 16 runs on the tensor cores ("tc"), every other
-call on CUDA cores in fp32 ("fma"); ``k1_variant`` chooses.
+fused, fully masked kv tiles skipped.  It has three variants: bf16 at head
+dim 64 or 128 runs on Hopper's warpgroup MMA, fed by TMA ("wg"); bf16 at
+any other head dim that is a multiple of 16 on the tensor cores through
+warp-level ``mma.sync`` ("tc"); every other call on CUDA cores in fp32
+("fma").  ``k1_variant`` chooses.
 
 ``flash_attention_hmajor`` launches the kernel for CUDA tensors and runs
 the plain version only for tensors on the CPU.  Every other tensor (on the
@@ -31,14 +33,25 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANT_CODES = {"fma": 0, "tc": 1}
+_VARIANT_CODES = {"fma": 0, "tc": 1, "wg": 2}
 MAX_HEAD_DIM = 256
+WG_HEAD_DIMS = (64, 128)
+
+
+def _takes(variant, dtype, hd):
+    """Whether ``variant`` of K1 can compute a call on ``dtype`` at head dim ``hd``."""
+    if variant == "wg":
+        return dtype == torch.bfloat16 and hd in WG_HEAD_DIMS
+    if variant == "tc":
+        return dtype == torch.bfloat16 and hd % 16 == 0 and hd <= MAX_HEAD_DIM
+    return variant == "fma"
 
 
 def k1_variant(dtype, hd):
-    """"tc" (bf16 tensor-core kernel) for bfloat16 at hd % 16 == 0, hd <= 256;
-    "fma" (fp32 CUDA-core kernel) for everything else, f32 included."""
-    return "tc" if dtype == torch.bfloat16 and hd % 16 == 0 and hd <= MAX_HEAD_DIM else "fma"
+    """"wg" (bf16 wgmma kernel) for bfloat16 at hd 64 or 128; "tc" (bf16
+    mma.sync kernel) for bfloat16 at any other hd % 16 == 0, hd <= 256; "fma"
+    (fp32 CUDA-core kernel) for everything else, f32 included."""
+    return next(v for v in ("wg", "tc", "fma") if _takes(v, dtype, hd))
 
 
 def _lib():
@@ -141,12 +154,11 @@ def work(q_shape, kv_len, causal=True, window=0, itemsize=2):
 
 
 def _launch(q, k, v, variant, *, causal, window, kv_valid, softmax_scale):
-    """Launch ``variant`` ("tc" or "fma") of K1 on checked CUDA tensors.  The
-    serve path takes ``k1_variant``'s choice; chip_smoke.py also times the
-    "fma" kernel on bf16 inputs through here.  A variant that cannot take
-    the call raises."""
-    if variant not in _VARIANT_CODES or (variant == "tc" and
-                                         k1_variant(q.dtype, q.shape[3]) != "tc"):
+    """Launch ``variant`` ("wg", "tc" or "fma") of K1 on checked CUDA tensors.
+    The serve path takes ``k1_variant``'s choice; chip_smoke.py also holds
+    and times "tc" and "fma" on bf16 inputs through here.  A variant that
+    cannot take the call raises."""
+    if variant not in _VARIANT_CODES or not _takes(variant, q.dtype, q.shape[3]):
         raise ValueError(f"K1 variant {variant!r} does not take {q.dtype} at "
                          f"head_dim {q.shape[3]}")
     _refuse_autograd(q, k, v)
@@ -161,8 +173,9 @@ def _launch(q, k, v, variant, *, causal, window, kv_valid, softmax_scale):
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     kv_valid = Skv if kv_valid is None else min(int(kv_valid), Skv)
     window = int(window) if window and window > 0 else 0
-    if variant == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("K1's tensor-core kernel wants q, k and v 16-byte aligned")
+    if variant != "fma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"K1's tensor-core kernel ({variant}) wants q, k and v "
+                         "16-byte aligned")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -188,4 +201,4 @@ def occupancy(variant, hd):
 
 
 flash_attention_hmajor.launches = 0
-flash_attention_hmajor.launches_by_variant = {"tc": 0, "fma": 0}
+flash_attention_hmajor.launches_by_variant = {"wg": 0, "tc": 0, "fma": 0}

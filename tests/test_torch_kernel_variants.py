@@ -1,9 +1,11 @@
 """Which kernel variant a K1 or K2 call takes, and when the libraries rebuild.
 
-bf16 calls that the tensor-core kernels can take go to them ("tc"); every
-other call goes to the fp32 CUDA-core kernels ("fma").  The choice is made
-in Python, so it is tested here without a card; the kernels themselves are
-tested on the card by tests/test_torch_kernels_card.py.
+bf16 calls that the tensor-core kernels can take go to them: K1 at head dim
+64 or 128 to its wgmma kernel ("wg"), at any other multiple of 16 to its
+mma.sync kernel ("tc"); K2 to "tc".  Every other call goes to the fp32
+CUDA-core kernels ("fma").  The choice is made in Python, so it is tested
+here without a card; the kernels themselves are tested on the card by
+tests/test_torch_kernels_card.py.
 """
 import pytest
 
@@ -19,11 +21,14 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.parametrize("dtype,hd,variant", [
-    (BF16, 128, "tc"), (BF16, 64, "tc"), (BF16, 256, "tc"), (BF16, 16, "tc"),
+    (BF16, 128, "wg"), (BF16, 64, "wg"), (BF16, 256, "tc"), (BF16, 16, "tc"),
     (BF16, 96, "tc"),              # a multiple of 16 that is not a power of two
     (BF16, 72, "fma"), (BF16, 100, "fma"), (BF16, 8, "fma"),
     (BF16, 272, "fma"),            # past the largest head dim either kernel takes
     (F32, 128, "fma"), (F32, 64, "fma"), (F32, 256, "fma"),
+    (BF16, 32, "tc"),              # the reduced() configs and Jamba's phase 11 run
+    (BF16, 192, "tc"),             # wg takes only the serve paths' head dims
+    (F32, 16, "fma"), (F32, 96, "fma"),
 ])
 def test_k1_variant(dtype, hd, variant):
     assert fa.k1_variant(dtype, hd) == variant
@@ -46,7 +51,8 @@ def test_every_config_serves_bf16_on_the_tensor_cores():
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         if cfg.head_dim:
-            assert fa.k1_variant(BF16, cfg.head_dim) == "tc", arch
+            want = "wg" if cfg.head_dim in (64, 128) else "tc"     # gemma3's 256 on tc
+            assert fa.k1_variant(BF16, cfg.head_dim) == want, arch
         if cfg.ssm is not None:
             assert ks.k2_variant(BF16, cfg.ssm.head_dim, cfg.ssm.d_state) == "tc", arch
 
@@ -65,6 +71,26 @@ def test_k1_refuses_a_variant_that_cannot_take_the_call():
         fa._launch(qb, qb, qb, "wgmma", **_K1_KW)
     with pytest.raises(ValueError, match="device"):               # a valid variant, on the CPU
         fa._launch(qb, qb, qb, "fma", **_K1_KW)
+    for dtype, hd in [(F32, 128), (F32, 64), (BF16, 96), (BF16, 256), (BF16, 16)]:
+        qw = torch.zeros(1, 2, 8, hd, dtype=dtype)
+        with pytest.raises(ValueError, match="variant"):           # wg: bf16 at hd 64 / 128 only
+            fa._launch(qw, qw, qw, "wg", **_K1_KW)
+    with pytest.raises(ValueError, match="variant"):
+        fa._launch(qb, qb, qb, "wg", **_K1_KW)                    # hd 72
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_k1_tc_stays_callable_where_wg_serves(hd):
+    """At the head dims "wg" takes, "tc" is still a variant that takes the
+    call (chip_smoke.py holds and times it there), so on the CPU it gets as
+    far as the device check."""
+    qb = torch.zeros(1, 2, 8, hd, dtype=BF16)
+    assert fa.k1_variant(BF16, hd) == "wg"
+    for variant in ("tc", "fma"):
+        with pytest.raises(ValueError, match="device"):
+            fa._launch(qb, qb, qb, variant, **_K1_KW)
+    with pytest.raises(ValueError, match="device"):
+        fa._launch(qb, qb, qb, "wg", **_K1_KW)
 
 
 def test_k2_refuses_a_variant_that_cannot_take_the_call():
@@ -84,16 +110,17 @@ def test_k2_refuses_a_variant_that_cannot_take_the_call():
 
 
 def test_cpu_calls_count_no_variant():
-    fa.flash_attention_hmajor.launches_by_variant.update(tc=0, fma=0)
+    fa.flash_attention_hmajor.launches_by_variant.update(wg=0, tc=0, fma=0)
     ks.ssd_scan_hmajor.launches_by_variant.update(tc=0, fma=0)
     fa.flash_attention_hmajor(torch.zeros(1, 2, 8, 16, dtype=BF16),
                               torch.zeros(1, 2, 8, 16, dtype=BF16),
                               torch.zeros(1, 2, 8, 16, dtype=BF16))
     fa.flash_attention_hmajor(*(torch.zeros(1, 2, 8, 72, dtype=BF16),) * 3)   # hd 72 -> fma
+    fa.flash_attention_hmajor(*(torch.zeros(1, 2, 8, 64, dtype=BF16),) * 3)   # hd 64 -> wg
     ks.ssd_scan_hmajor(torch.zeros(1, 2, 8, 16, dtype=BF16), torch.zeros(1, 2, 8),
                        -torch.ones(2), torch.zeros(1, 1, 8, 16, dtype=BF16),
                        torch.zeros(1, 1, 8, 16, dtype=BF16), chunk=4)
-    assert fa.flash_attention_hmajor.launches_by_variant == {"tc": 0, "fma": 0}
+    assert fa.flash_attention_hmajor.launches_by_variant == {"wg": 0, "tc": 0, "fma": 0}
     assert ks.ssd_scan_hmajor.launches_by_variant == {"tc": 0, "fma": 0}
 
 

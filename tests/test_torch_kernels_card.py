@@ -1,8 +1,10 @@
 """K1 and K2 on the card against their plain versions.
 
-Every f32 case has a bf16 twin: bf16 runs the tensor-core variant ("tc")
-wherever ``k1_variant`` / ``k2_variant`` choose it (hd 72 stays on the
-CUDA-core "fma" kernel), and each call is counted under its variant.
+Every f32 case has a bf16 twin: bf16 runs a tensor-core variant wherever
+``k1_variant`` / ``k2_variant`` choose it (K1: "wg" at hd 64 and 128, "tc"
+at the other multiples of 16; hd 72 stays on the CUDA-core "fma" kernel),
+and each call is counted under its variant.  Where K1 takes "wg", its "tc"
+kernel is held on the same inputs too.
 
 This file needs no jax, so that it also runs on a machine with a CUDA card
 and no jax:
@@ -50,7 +52,8 @@ def test_k1_kernel_matches_plain_on_card(shape, dtype, kw, tol):
     q, k, v = (torch.randn(s, generator=g, device="cuda").to(getattr(torch, dtype))
                for s in ((B, H, Sq, hd), (B, K, Skv, hd), (B, K, Skv, hd)))
     variant = fa.k1_variant(q.dtype, hd)
-    assert variant == ("tc" if dtype == "bfloat16" and hd != 72 else "fma")
+    want = ("fma" if dtype == "float32" or hd == 72 else "wg" if hd in (64, 128) else "tc")
+    assert variant == want
     before = fa.flash_attention_hmajor.launches
     by_variant = fa.flash_attention_hmajor.launches_by_variant[variant]
     out = fa.flash_attention_hmajor(q, k, v, **kw)
@@ -60,6 +63,11 @@ def test_k1_kernel_matches_plain_on_card(shape, dtype, kw, tol):
     assert out.dtype == q.dtype and out.shape == q.shape
     ref = fa.flash_attention_hmajor_plain(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    if variant == "wg":
+        full = dict(dict(causal=True, window=0, kv_valid=None, softmax_scale=None), **kw)
+        tc = fa._launch(q, k, v, "tc", **full)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(tc.float(), ref.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -164,8 +172,11 @@ def test_k2_tc_f32_y_rounds_to_its_bf16_y(shape):
 def test_tc_kernels_fit_two_blocks_per_sm_at_the_serve_head_dims():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the occupancy query runs on the card")
-    assert fa.occupancy("tc", 128)[1] >= 2         # internlm2-1.8b
+    assert fa.occupancy("tc", 128)[1] >= 2         # internlm2-1.8b before "wg"
     assert ks.occupancy("tc", 64)[1] >= 2          # mamba2-1.3b: 256 blocks in one wave
+    for hd in (64, 128):                           # wg: one block of 3 warpgroups per SM
+        smem, blocks = fa.occupancy("wg", hd)
+        assert smem > 0 and blocks == 1
     for query, dim in [(fa.occupancy, 256), (ks.occupancy, 128), (fa.occupancy, 128),
                        (ks.occupancy, 64)]:
         for variant in ("tc", "fma"):

@@ -6,9 +6,11 @@ variant "tc") multiply bf16 operands with fp32 sums, so their results differ
 from the Pallas kernels only where an fp32 intermediate becomes a bf16
 operand:
 
-* K1: the probabilities P, rounded before P V (the Pallas kernel keeps them
-  in f32); the row sums use the unrounded P.  Online softmax runs over the
-  kernel's 64-key sub-tiles of the reference's 128-key tiles.
+* K1: the probabilities P, rounded to bf16 before P V (the reference keeps
+  them in f32); the row sums use the unrounded P.  Online softmax runs over
+  the kernel's sub-tiles of the reference's 128-key tiles: 64 keys in the
+  mma.sync kernel ("tc"), the whole 128 in the wgmma kernel ("wg", ``sub=
+  WG_SUB``).
 * K2: the masked tile att, the state operand of C state^T and B .* w, all
   rounded to bf16, over the kernel's own 64-row chunks; the carried state,
   cum, the decays and w stay fp32.  The kernel on the serve path takes att
@@ -34,6 +36,7 @@ from repro.kernels.ref import attention_ref, ssd_ref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan_hmajor as pallas_ssd  # noqa: E402
 
 REF_TILE, SUB, CHUNK = 128, 64, 64     # K1's reference tile and sub-tile; K2's chunk
+WG_SUB = 128                           # K1 "wg": the sub-tile is the reference tile
 
 
 def _bf16(a):
@@ -41,8 +44,9 @@ def _bf16(a):
     return a.to(torch.bfloat16).float()
 
 
-def k1_tc_model(q, k, v, *, causal=True, window=0, kv_valid=None):
-    """q [B,H,Sq,hd], k/v [B,K,Skv,hd] (bf16 values in f32) -> f32 output."""
+def k1_tc_model(q, k, v, *, causal=True, window=0, kv_valid=None, sub=SUB):
+    """q [B,H,Sq,hd], k/v [B,K,Skv,hd] (bf16 values in f32) -> f32 output,
+    with the online softmax over sub-tiles of ``sub`` keys."""
     B, H, Sq, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
     k = k.repeat_interleave(H // K, dim=1)
@@ -52,12 +56,12 @@ def k1_tc_model(q, k, v, *, causal=True, window=0, kv_valid=None):
     bq_ref = min(REF_TILE, -(-Sq // 8) * 8)
     bkv_ref = min(REF_TILE, -(-Skv // 8) * 8)
     out = torch.zeros_like(q)
-    for q0 in range(0, Sq, SUB):
-        rows = torch.arange(q0, q0 + SUB)[:, None]
-        qb = torch.nn.functional.pad(q[:, :, q0:q0 + SUB], (0, 0, 0, q0 + SUB - min(Sq, q0 + SUB)))
-        m = torch.full((B, H, SUB, 1), -1e30)
-        l = torch.zeros((B, H, SUB, 1))
-        acc = torch.zeros((B, H, SUB, hd))
+    for q0 in range(0, Sq, sub):
+        rows = torch.arange(q0, q0 + sub)[:, None]
+        qb = torch.nn.functional.pad(q[:, :, q0:q0 + sub], (0, 0, 0, q0 + sub - min(Sq, q0 + sub)))
+        m = torch.full((B, H, sub, 1), -1e30)
+        l = torch.zeros((B, H, sub, 1))
+        acc = torch.zeros((B, H, sub, hd))
         q_lo = q0 // bq_ref * bq_ref
         for jt in range(-(-Skv // bkv_ref)):
             k_lo = jt * bkv_ref
@@ -68,13 +72,13 @@ def k1_tc_model(q, k, v, *, causal=True, window=0, kv_valid=None):
                 needed &= q_lo - (k_lo + bkv_ref - 1) < window
             if not needed:
                 continue
-            for c0 in range(0, bkv_ref, SUB):
-                n = min(SUB, bkv_ref - c0)
+            for c0 in range(0, bkv_ref, sub):
+                n = min(sub, bkv_ref - c0)
                 kb = k_lo + c0
-                cols = torch.arange(kb, kb + SUB)[None, :]
-                kt = torch.zeros((B, H, SUB, hd))
-                vt = torch.zeros((B, H, SUB, hd))
-                hi = min(Skv, kb + SUB)
+                cols = torch.arange(kb, kb + sub)[None, :]
+                kt = torch.zeros((B, H, sub, hd))
+                vt = torch.zeros((B, H, sub, hd))
+                hi = min(Skv, kb + sub)
                 if hi > kb:
                     kt[:, :, :hi - kb] = k[:, :, kb:hi]
                     vt[:, :, :hi - kb] = v[:, :, kb:hi]
@@ -93,7 +97,7 @@ def k1_tc_model(q, k, v, *, causal=True, window=0, kv_valid=None):
                 acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", _bf16(p), vt)
                 m = m_new
         res = acc / l.clamp(min=1e-30)
-        out[:, :, q0:q0 + SUB] = res[:, :, :min(SUB, Sq - q0)]
+        out[:, :, q0:q0 + sub] = res[:, :, :min(sub, Sq - q0)]
     return out
 
 
@@ -178,6 +182,29 @@ def test_k1_tc_rounding_within_tolerance_of_pallas_interpret(name, shape, kw, st
                                atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("name,shape,kw,std", K1_CASES, ids=[c[0] for c in K1_CASES])
+def test_k1_wg_rounding_within_tolerance_of_jax_ref(name, shape, kw, std):
+    """The "wg" kernel's rounding: the online softmax over whole 128-key
+    reference tiles."""
+    q, k, v = _qkv(*shape, seed=sum(map(ord, name)), std=std)
+    model = k1_tc_model(*(torch.from_numpy(a) for a in (q, k, v)), sub=WG_SUB, **kw)
+    ref = attention_ref(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), **kw)
+    np.testing.assert_allclose(_bf16(model).numpy(), np.asarray(ref, np.float32),
+                               atol=3e-2, rtol=3e-2)
+    exact = attention_ref(*(jnp.asarray(a) for a in (q, k, v)), **kw)
+    assert np.abs(model.numpy() - np.asarray(exact)).max() > 1e-6
+
+
+@pytest.mark.parametrize("name,shape,kw,std", [K1_CASES[0], K1_CASES[2], K1_CASES[4]],
+                         ids=["causal", "windowed_gqa_hd96", "peaked_scores"])
+def test_k1_wg_rounding_within_tolerance_of_pallas_interpret(name, shape, kw, std):
+    q, k, v = _qkv(*shape, seed=sum(map(ord, name)), std=std)
+    model = k1_tc_model(*(torch.from_numpy(a) for a in (q, k, v)), sub=WG_SUB, **kw)
+    ref = pallas_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), interpret=True, **kw)
+    np.testing.assert_allclose(_bf16(model).numpy(), np.asarray(ref, np.float32),
+                               atol=3e-2, rtol=3e-2)
+
+
 def _ssd_inputs(B, S, H, G, P, N, seed, serve):
     """numpy-seeded K2 inputs: x, B, C rounded to bf16; dt and A in f32.
     ``serve`` draws dt and A as the mamba2 serve path has them (small dt,
@@ -229,14 +256,16 @@ def test_k2_tc_rounding_within_tolerance_of_pallas_interpret(name, shape, serve)
     np.testing.assert_allclose(st.numpy(), np.asarray(sr), atol=5e-2, rtol=5e-2)
 
 
-@pytest.mark.parametrize("kernel", ["k1_peaked", "k2_serve_regime", "k2_serve_regime_tf32"])
+@pytest.mark.parametrize("kernel", ["k1_peaked", "k2_serve_regime", "k2_serve_regime_tf32",
+                                    "k1_wg_peaked"])
 def test_tc_rounding_uses_under_half_the_tolerance(kernel):
     """Before y is stored in bf16, the operand rounding alone uses less than
     half of the tolerance (the margin the design asks for), measured
     against the exact f32 oracle on the same bf16 inputs."""
-    if kernel == "k1_peaked":
+    if kernel.startswith("k1"):
         q, k, v = _qkv(1, 256, 256, 2, 1, 128, seed=5, std=11.3)
-        got = k1_tc_model(*(torch.from_numpy(a) for a in (q, k, v)), causal=True).numpy()
+        got = k1_tc_model(*(torch.from_numpy(a) for a in (q, k, v)), causal=True,
+                          sub=WG_SUB if "wg" in kernel else SUB).numpy()
         ref = np.asarray(attention_ref(*(jnp.asarray(a) for a in (q, k, v)), causal=True))
         tol = 3e-2
     else:
