@@ -15,10 +15,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    plain PyTorch version on the card, every f32 case beside its bf16 twin
    (bf16 takes a tensor-core variant: K1 "wg", wgmma and TMA, at hd 64 and
    128, where K1's mma.sync "tc" kernel is held on the same inputs too, and
-   "tc" at the other multiples of 16; f32 takes the CUDA-core "fma"); at
-   K2's serve shape, split its error into operand rounding (y written in
-   f32; held to half the tolerance) and output rounding, beside the "fma"
-   kernel and the tc kernel on bf16 operands only, on the same inputs;
+   "tc" at the other multiples of 16; K2 "wg", split over the sequence,
+   wgmma and TMA, at P and N of 64 and 128, where it is held again at 1, 2
+   and 3 segments and ``k2_segments``'s count, called twice for the same
+   bits, and K2's mma.sync "tc" kernel is held on the same inputs too, and
+   "tc" at the other bf16 shapes; f32 takes the CUDA-core "fma"); at K2's
+   serve shape, split the error into operand rounding ("tc" writing y in
+   f32, held to half the tolerance; "wg" against the f32 plain version
+   beside "fma") and output rounding, beside the "fma" kernel and the tc kernel
+   on bf16 operands only, on the same inputs;
 4. serve: ``repro_torch.launch.serve`` on internlm2-1.8b at full width
    (24 layers, seeded random bf16 weights), batch 4, prompt 1024, 32 new
    tokens, flash prefill; count the kernel launches of that run by variant
@@ -26,11 +31,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    flash against dot prefill;
 5. serve, SSM: the same entry point on mamba2-1.3b at full width (48
    layers), batch 4, prompt 1024, 32 new tokens; every prefill layer's SSD
-   goes through K2; count the launches by variant (48 tensor-core K2, none
-   in decode), check the tokens, the logits and prefill->decode consistency
+   goes through K2; count the launches by variant (48 K2 "wg", none in
+   decode), check the tokens, the logits and prefill->decode consistency
    (K2 prefill against the plain decode recurrence);
 6. times: kernel (and, on the same inputs, its other variants: K1 "tc" and
-   "fma", K2 "fma"), plain version, library call and serve times, as JSON.
+   "fma", K2 "tc" and "fma"), plain version, library call and serve times,
+   bound and the share of it each kernel reaches, as JSON.
    ``ms`` is the median of
    single calls, each timed alone (the host's launch work included);
    ``device_ms`` times calls enqueued back to back, which hides it;
@@ -99,8 +105,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (torch.profiler): device ms, its share of the host-clock time, and the
    five longest kernels.
    (e) K1 at the whisper encoder and llava prefill shapes ("wg" and "tc")
-   and K2 at Jamba's mixer shape against their plain versions, then timed
-   beside SDPA and their bounds.  The ``families`` JSON line gives each run's
+   and K2 ("wg") at Jamba's mixer shape and the mamba2 train microbatch
+   against their plain versions, then timed beside SDPA (K1), "tc" on the
+   same inputs and their bounds.  The ``families`` JSON line gives each run's
    times, peak memory, launches and checks.
 12. train: ``repro_torch.launch.train.main`` in this process, as a user
    starts it, seeded random bf16 weights, each model freed before the
@@ -113,7 +120,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the CPU (each leaf within 1e-4 of its norm + 1e-6), remat "dots"
    against "none" on the card (1e-6), every gradient nonzero; for mamba2
    also the gradient through ``SSDScanFn`` (K2 "fma") against autograd
-   through the plain scan on the card (1e-4), and the bf16 step (K2 "tc")
+   through the plain scan on the card (1e-4), and the bf16 step (K2 "wg")
    against the f32 one (each leaf within 5e-2 of its norm).  (a)
    internlm2-1.8b at full width (24 layers, remat "dots"), seq 4,096,
    global batch 8 in 4 microbatches of 2, 4 steps at lr 3e-4: no K1 or K2
@@ -121,7 +128,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    same model 2 steps with int8 optimizer state: the peak memory drops by
    the int8 saving of m and v within 20%, and the step-2 loss is within
    1e-2 of (a)'s; (b) mamba2-1.3b at full width (48 layers) as (a): K2
-   "tc" once per layer and microbatch (192 a step: remat "dots" keeps its
+   "wg" once per layer and microbatch (192 a step: remat "dots" keeps its
    outputs, and ``SSDScanFn``'s backward reruns the plain scan).  For
    (a) and (b) each step's loss, lr, grad_norm and seconds, the warm step
    time (steps 2-4), tokens/s, peak GB and the share of the dense bf16
@@ -155,7 +162,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    mesh on the card, full width, seeded random bf16 weights:
    internlm2-1.8b at prefill_32k (batch cut from 32 to 1, flash attention:
    K1 "wg" 24 times at S = 32,768), mamba2-1.3b at prefill_32k (batch 1: K2
-   "tc" 48 times), internlm2-1.8b at decode_32k (int8 cache, batch cut from
+   "wg" 48 times), internlm2-1.8b at decode_32k (int8 cache, batch cut from
    128 to 32: ~53 GB of cache) and mamba2-1.3b at decode_32k (batch 128).
    Each cell runs once with the launch counts set to 0 just before and read
    just after, its logits finite; then its warm time (median of 3, CUDA
@@ -167,7 +174,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the warm time).  Before the cells, K1 and K2 at the prefill cells'
    shapes against their plain versions (bf16 tolerances, row by row as in
    11 (e); K1 "wg" and "tc"; the plain K1 a block of 2,048 query rows at a
-   time), timed beside their bounds and, for K1, SDPA.  (b) ``python -m
+   time), timed beside their bounds, "tc" on the same inputs and, for K1,
+   SDPA; K2 "wg" also at each segment count of ``K2_SEGMENT_SWEEP``.  (b) ``python -m
    repro_torch.launch.dryrun`` on the host (meta DTensors over a fake
    process group, no card), one single-threaded process per cell, all six
    started after the last timed phase (so that no host time above is
@@ -309,12 +317,16 @@ def kernel_occupancy():
     out = {}
     for key, query, dims in [("K1", flash_attention.occupancy,
                               {"wg": (64, 128), "tc": (128, 256), "fma": (128, 256)}),
-                             ("K2", ssd_scan.occupancy, {"tc": (64, 128), "fma": (64, 128)})]:
+                             ("K2", ssd_scan.occupancy,
+                              {"wg": (64, 128), "tc": (64, 128), "fma": (64, 128)})]:
         for variant, variant_dims in dims.items():
             for dim in variant_dims:
                 smem, blocks = query(variant, dim)
                 out[f"{key} {variant} {'hd' if key == 'K1' else 'P'}={dim}"] = {
                     "smem_bytes": smem, "blocks_per_sm": blocks}
+                if key == "K2" and variant == "wg" and blocks != ssd_scan.WG_BLOCKS_PER_SM[dim]:
+                    fail(f"K2 wg at P={dim}: {blocks} blocks a SM on the card, but "
+                         f"k2_segments counts {ssd_scan.WG_BLOCKS_PER_SM[dim]}")
     for name, o in out.items():
         log(f"{name}: {o['smem_bytes']} B dynamic shared memory, "
             f"{o['blocks_per_sm']} blocks per SM")
@@ -451,13 +463,19 @@ def _ssd_inputs(B, S, H, G, P, N, dtype, seed, dt_dtype=None, serve=False):
 
 def check_k2():
     """K2 against its plain version on the card (and against the step-by-step
-    ``ssd_ref`` on the f32 cases); returns the serve-shape error with its
+    ``ssd_ref`` on the f32 cases and the bf16 cases "wg" takes).  Where a
+    call takes "wg" (bf16 at P, N of 64 and 128), the same inputs go through
+    "wg" again at 1, 2 and 3 segments and at ``k2_segments``'s count, the
+    public call twice (the same bits both times: no atomics), and through
+    "tc", each held the same way.  Returns the serve-shape error with its
     share of the tolerance, and that error split by ``k2_rounding``."""
     import torch
     from repro_torch.kernels.ref import ssd_ref
-    from repro_torch.kernels.ssd_scan import (k2_variant, ssd_scan_hmajor,
+    from repro_torch.kernels.ssd_scan import (WG_BLOCKS_PER_SM, WG_CHUNK, _launch, k2_segments,
+                                              k2_variant, ssd_scan_hmajor,
                                               ssd_scan_hmajor_plain)
     f32, bf16 = torch.float32, torch.bfloat16
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []   # (name, (B, S, H, G, P, N), chunk, dtype, dt dtype, h0, tolerance)
     for name, shape, chunk, with_h0 in [
             ("(1,64,4,1,32,16)", (1, 64, 4, 1, 32, 16), 16, False),
@@ -470,6 +488,13 @@ def check_k2():
         cases.append((f"bf16 {name} chunk={chunk}", shape, chunk, bf16, f32, with_h0, 5e-2))
     cases.append(("bf16 (1,64,2,1,32,16) dt bf16", (1, 64, 2, 1, 32, 16), 16, bf16, bf16,
                   False, 5e-2))
+    # "wg" at P and N of 64 and 128: ragged S, h0, G > 1, dt in bf16
+    for name, shape, with_h0, dt_dtype in [
+            ("(2,333,4,2,64,64) h0", (2, 333, 4, 2, 64, 64), True, f32),
+            ("(1,300,4,2,128,128)", (1, 300, 4, 2, 128, 128), False, f32),
+            ("(2,517,4,1,128,64) h0 dt bf16", (2, 517, 4, 1, 128, 64), True, bf16),
+            ("(1,1000,8,1,64,128) h0", (1, 1000, 8, 1, 64, 128), True, f32)]:
+        cases.append((f"bf16 {name}", shape, 64, bf16, dt_dtype, with_h0, 5e-2))
     s = SSM_SERVE_SHAPE
     cases.append(("bf16 serve shape, dt f32", (s["B"], s["S"], s["H"], s["G"], s["P"], s["N"]),
                   256, bf16, f32, False, 5e-2))
@@ -489,43 +514,61 @@ def check_k2():
         if ssd_scan_hmajor.launches_by_variant[variant] != before + 1:
             fail(f"K2 {name}: the {variant} kernel was not the one launched")
         refs = {"plain": ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)}
-        if dtype == f32:
+        if dtype == f32 or (variant == "wg" and "serve" not in name):
             refs["ssd_ref"] = ssd_ref(x, dt, A, Bi, Ci, h0=h0)
-        if y.dtype != dtype or y.shape != x.shape or st.dtype != f32 or st.shape != (B, H, P, N):
-            fail(f"K2 {name}: got y {y.dtype} {tuple(y.shape)}, state {st.dtype} "
-                 f"{tuple(st.shape)}")
-        if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
-            fail(f"K2 {name}: output is not finite")
-        for ref_name, (yr, sr) in refs.items():
-            ey = _agreement(y.float(), yr.float(), tol)
-            es = _agreement(st, sr, tol)
-            bad = ey[2] + es[2]
-            log(f"K2 {name} [{variant}] vs {ref_name}: max_abs_err y {ey[0]:.3e} state "
-                f"{es[0]:.3e} (atol=rtol={tol}, share y {ey[1]:.3f} state {es[1]:.3f}) "
-                f"{'ok' if bad == 0 else f'{bad} entries out of tolerance'}")
-            if bad:
-                fail(f"K2 disagrees with {ref_name} on {name}")
-            if "serve" in name:
-                serve = max(ey[0], es[0]), max(ey[1], es[1])
+        runs = [(variant, y, st)]
+        if variant == "wg":
+            rule = k2_segments(B, H, S, sm_count, WG_BLOCKS_PER_SM[P])
+            for n in sorted({1, 2, 3, rule} & set(range(1, -(-S // WG_CHUNK) + 1))):
+                runs.append((f"wg segments={n}{' (the rule)' if n == rule else ''}",
+                             *_launch(x, dt, A, Bi, Ci, h0, "wg", bf16, segments=n)))
+            again = ssd_scan_hmajor(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)
+            torch.cuda.synchronize()
+            if not (torch.equal(again[0], y) and torch.equal(again[1], st)):
+                fail(f"K2 {name}: two wg calls on the same inputs differ")
+            runs.append(("tc", *_launch(x, dt, A, Bi, Ci, h0, "tc", bf16)))
+            torch.cuda.synchronize()
+        for run_name, y_run, st_run in runs:
+            if (y_run.dtype != dtype or y_run.shape != x.shape or st_run.dtype != f32
+                    or st_run.shape != (B, H, P, N)):
+                fail(f"K2 {name} [{run_name}]: got y {y_run.dtype} {tuple(y_run.shape)}, "
+                     f"state {st_run.dtype} {tuple(st_run.shape)}")
+            if not (torch.isfinite(y_run.float()).all() and torch.isfinite(st_run).all()):
+                fail(f"K2 {name} [{run_name}]: output is not finite")
+            for ref_name, (yr, sr) in refs.items():
+                ey = _agreement(y_run.float(), yr.float(), tol)
+                es = _agreement(st_run, sr, tol)
+                bad = ey[2] + es[2]
+                log(f"K2 {name} [{run_name}] vs {ref_name}: max_abs_err y {ey[0]:.3e} state "
+                    f"{es[0]:.3e} (atol=rtol={tol}, share y {ey[1]:.3f} state {es[1]:.3f}) "
+                    f"{'ok' if bad == 0 else f'{bad} entries out of tolerance'}")
+                if bad:
+                    fail(f"K2 ({run_name}) disagrees with {ref_name} on {name}")
+                if "serve" in name and run_name == variant:
+                    serve = max(ey[0], es[0]), max(ey[1], es[1])
         if "serve" in name:
             rounding = k2_rounding(x, dt, A, Bi, Ci, y, tol)
     return serve, rounding
 
 
-def k2_rounding(x, dt, A, Bi, Ci, y_tc, tol):
+def k2_rounding(x, dt, A, Bi, Ci, y_wg, tol):
     """Where K2's bf16 serve-shape error comes from.  y is stored in bf16 on
     both sides, so the error against the plain version holds the operand
     rounding of the tensor-core products and, at an entry where the two
     unrounded values straddle a rounding boundary, one bf16 step of output
-    rounding.  The "tc" kernel writing y in f32 gives the first alone; the
-    "fma" kernel (fp32 products) on the same inputs gives the floor that
-    output rounding sets.  "tc" runs att @ x and C @ state^T on tf32
-    operands; the same kernel with every product on bf16 operands
-    (``tf32=False``) is measured beside it."""
+    rounding.  "wg" (``y_wg``, every operand a hi + lo bf16 pair) is held
+    against the plain version in f32 and rounded to bf16, beside the "fma"
+    kernel, whose error against the f32 plain version is output rounding
+    alone.  The "tc" kernel writing y in f32 gives its operand
+    rounding alone; the "fma" kernel (fp32 products) on the same inputs
+    gives the floor that output rounding sets.  "tc" runs att @ x and C @
+    state^T on tf32 operands; the same kernel with every product on bf16
+    operands (``tf32=False``) is measured beside it."""
     import torch
     from repro_torch.kernels import ssd_scan as ks
     ref32, _ = ks.ssd_scan_hmajor_plain(x.float(), dt, A, Bi.float(), Ci.float(), chunk=256)
     ref = ref32.to(torch.bfloat16).float()
+    y_tc, _ = ks._launch(x, dt, A, Bi, Ci, None, "tc", torch.bfloat16)
     y_pre, _ = ks._launch(x, dt, A, Bi, Ci, None, "tc", torch.float32)
     y_fma, _ = ks._launch(x, dt, A, Bi, Ci, None, "fma", torch.bfloat16)
     y_b16, _ = ks._launch(x, dt, A, Bi, Ci, None, "tc", torch.bfloat16, tf32=False)
@@ -533,7 +576,8 @@ def k2_rounding(x, dt, A, Bi, Ci, y_tc, tol):
     torch.cuda.synchronize()
     out = {"max_abs_y": float(ref32.abs().max()),
            "tc_f32_y_rounds_to_tc_y": bool(torch.equal(y_pre.to(torch.bfloat16), y_tc))}
-    for label, got, against in [("tc_vs_plain", y_tc, ref), ("fma_vs_plain", y_fma, ref),
+    for label, got, against in [("wg_vs_plain", y_wg, ref), ("wg_vs_plain_f32", y_wg, ref32),
+                                ("tc_vs_plain", y_tc, ref), ("fma_vs_plain", y_fma, ref),
                                 ("tc_f32_y_vs_plain_f32", y_pre, ref32),
                                 ("tc_vs_plain_f32", y_tc, ref32),
                                 ("fma_vs_plain_f32", y_fma, ref32),
@@ -569,6 +613,14 @@ def run_serve():
     return res, launches, by_variant
 
 
+def _k2_variant_of(cfg):
+    """The K2 variant a bf16 model's Mamba-2 layers take (``k2_variant``):
+    "wg" at full width, "tc" at ``reduced()``'s P = N = 16."""
+    import torch
+    from repro_torch.kernels.ssd_scan import k2_variant
+    return k2_variant(torch.bfloat16, cfg.ssm.head_dim, cfg.ssm.d_state)
+
+
 def run_ssm_serve():
     """The SSM serve path: K2 once per prefill layer, none in decode."""
     res, counts, by_variant = _serve_counted(SSM_SERVE_ARGS)
@@ -580,10 +632,11 @@ def run_ssm_serve():
         f"N={s.d_state} G={s.n_groups} V={cfg.vocab_size}: prefill "
         f"{res.prefill_s*1e3:.1f} ms, decode {res.decode_s/(GEN-1)*1e3:.2f} ms/token, "
         f"launches {counts} {by_variant}")
-    if (launches != cfg.num_layers or by_variant["K2"]["tc"] != cfg.num_layers
+    k2v = _k2_variant_of(cfg)
+    if (launches != cfg.num_layers or by_variant["K2"][k2v] != cfg.num_layers
             or counts["K1"] != 0):
         fail(f"launches {counts} {by_variant} in the mamba2 serve run, want K2 "
-             f"{cfg.num_layers} on the tensor cores (one per layer of the prefill, none in "
+             f"{cfg.num_layers} on \"{k2v}\" (one per layer of the prefill, none in "
              "decode) and K1 0")
     return res, launches, by_variant
 
@@ -823,16 +876,31 @@ def _k2_work(x, dt, Bi):
                 dt_itemsize=dt.element_size())
 
 
-def time_k2_at(B, S, H, G, P, N, seed=98, variants=True):
-    """K2 (tc) on bf16 inputs at one shape: its times, the CUDA-core variant
-    and the bf16-operand tc kernel on the same inputs (``variants``), the
-    plain version and the bound."""
-    from repro_torch.kernels.ssd_scan import _launch, ssd_scan_hmajor, ssd_scan_hmajor_plain
+def time_k2_at(B, S, H, G, P, N, seed=98, variants=True, sweep=()):
+    """K2 on bf16 inputs at one shape: the variant the serve path takes
+    (``variant``, "wg" at P, N of 64 / 128, with ``k2_segments``'s count
+    ``segments``) through the public wrapper, its times; on the same inputs
+    the "tc" kernel where "wg" took over (``tc_ms``, ``tc_device_ms``), with
+    ``variants`` the CUDA-core variant and the bf16-operand tc kernel, and
+    "wg"'s ``device_ms`` at each segment count of ``sweep``; the plain
+    version, the bound and the share of the bound each kernel reaches."""
+    from repro_torch.kernels.ssd_scan import (WG_BLOCKS_PER_SM, WG_CHUNK, _launch, k2_segments,
+                                              k2_variant, ssd_scan_hmajor,
+                                              ssd_scan_hmajor_plain)
     import torch
     x, dt, A, Bi, Ci = _ssd_inputs(B, S, H, G, P, N, torch.bfloat16, seed=seed, serve=True)
+    variant = k2_variant(x.dtype, P, N)
     kernel = lambda: ssd_scan_hmajor(x, dt, A, Bi, Ci)
-    kernel_ms, device_ms = _time_ms(kernel), _device_ms(kernel)
-    out = dict(ms=kernel_ms, device_ms=device_ms)
+    out = dict(variant=variant, ms=_time_ms(kernel), device_ms=_device_ms(kernel))
+    if variant == "wg":
+        out["segments"] = k2_segments(B, H, S, torch.cuda.get_device_properties(0)
+                                      .multi_processor_count, WG_BLOCKS_PER_SM[P])
+        tc = lambda: _launch(x, dt, A, Bi, Ci, None, "tc", torch.bfloat16)
+        out.update(tc_ms=_time_ms(tc), tc_device_ms=_device_ms(tc))
+        out["segment_sweep"] = {
+            n: _device_ms(lambda: _launch(x, dt, A, Bi, Ci, None, "wg", torch.bfloat16,
+                                          segments=n))
+            for n in sweep if n <= -(-S // WG_CHUNK)}
     if variants:
         out["fma_ms"] = _time_ms(lambda: _launch(x, dt, A, Bi, Ci, None, "fma", torch.bfloat16))
         bf16_ops = lambda: _launch(x, dt, A, Bi, Ci, None, "tc", torch.bfloat16, tf32=False)
@@ -841,6 +909,9 @@ def time_k2_at(B, S, H, G, P, N, seed=98, variants=True):
     out["plain_ms"] = _time_ms(lambda: ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=256))
     flops, nbytes = _k2_work(x, dt, Bi)
     bound_ms, bound_by = _bound(flops, nbytes)
+    out["bound_share"] = bound_ms / out["device_ms"]
+    if "tc_device_ms" in out:
+        out["tc_bound_share"] = bound_ms / out["tc_device_ms"]
     return dict(out, library_ms=None, library_device_ms=None, bound_ms=bound_ms,
                 bound_by=bound_by, flops=flops, bytes=nbytes)
 
@@ -1397,10 +1468,11 @@ def run_family(name):
     want_k1 = n_attn + (cfg.encoder.num_layers if cfg.encoder else 0)
     want_k2 = cfg.num_layers - n_attn if cfg.hybrid else 0
     k1v = k1_variant(torch.bfloat16, cfg.head_dim)   # "wg" at hd 64/128, "tc" at Jamba's 16
+    k2v = _k2_variant_of(cfg) if cfg.ssm is not None else "wg"   # Jamba reduced(): "tc"
     if (counts["K1"] != want_k1 or by_variant["K1"][k1v] != want_k1
-            or counts["K2"] != want_k2 or by_variant["K2"]["tc"] != want_k2):
+            or counts["K2"] != want_k2 or by_variant["K2"][k2v] != want_k2):
         fail(f"{cfg.name}: launches {counts} {by_variant}, want K1 {want_k1} ({k1v}) and K2 "
-             f"{want_k2} (tc), all on the tensor cores, in one prefill and none in decode")
+             f"{want_k2} ({k2v}), all on the tensor cores, in one prefill and none in decode")
     S = res.prompts.shape[1] + cfg.num_image_tokens
     self_calls = [c for c in calls if c[1][1] == c[2][1]]
     enc_calls = [c for c in calls if not c[0]]
@@ -1603,7 +1675,7 @@ TRAIN_ARGS = ["--seq-len", "4096", "--global-batch", "8", "--accum", "4", "--lr"
 TRAIN_RUNS = {"internlm2": "internlm2-1.8b", "mamba2": "mamba2-1.3b"}
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)       # per leaf: |g - g_ref| <= rtol |g_ref| + atol
 REMAT_TOL = 1e-6                            # dots against none: relative, loss and each leaf
-# the bf16 step (K2 tc) against the f32 step, per leaf, relative to the f32
+# the bf16 step (K2 wg) against the f32 step, per leaf, relative to the f32
 # gradient's norm: K2's own bf16 tolerance, which its bf16 output uses up
 # to 0.2 of at the serve shapes (phase 3, phase 11 (e)); a gradient
 # through one bf16 layer carries errors of the same order as its output
@@ -1673,7 +1745,7 @@ def run_train(name, ocfg=None, steps=TRAIN_STEPS, after=None):
     random bf16 weights, with the optimizer config its flags give unless
     ``ocfg`` replaces it; the steps' losses, rates and times, the peak
     memory and the kernel launches (K1 none: training takes the chunked
-    attention at 4,096 positions; K2 "tc" once per Mamba-2 layer and
+    attention at 4,096 positions; K2 "wg" once per Mamba-2 layer and
     microbatch, and once more under remat "full", whose recompute runs it
     again).  ``after(res)`` runs on the trained
     result and its dict joins the line.  Frees the model before
@@ -1687,9 +1759,10 @@ def run_train(name, ocfg=None, steps=TRAIN_STEPS, after=None):
     accum = 4
     per_layer = 2 if cfg.remat == "full" else 1     # "dots" keeps K2's outputs
     want_k2 = cfg.num_layers * accum * per_layer * steps if cfg.family == "ssm" else 0
-    if counts["K1"] != 0 or counts["K2"] != want_k2 or by_variant["K2"]["tc"] != want_k2:
+    k2v = _k2_variant_of(cfg) if cfg.family == "ssm" else "wg"
+    if counts["K1"] != 0 or counts["K2"] != want_k2 or by_variant["K2"][k2v] != want_k2:
         fail(f"{arch} train: launches {counts} {by_variant}, want K1 0 and K2 {want_k2} "
-             "(tc), one per Mamba-2 layer and microbatch")
+             f"({k2v}), one per Mamba-2 layer and microbatch")
     losses = [s["loss"] for s in res.steps]
     if len(res.steps) != steps or not all(math.isfinite(s["loss"]) and math.isfinite(
             s["grad_norm"]) for s in res.steps):
@@ -1742,7 +1815,7 @@ def check_train_grads():
     (each leaf within ``GRAD_TOL``); remat "dots" against "none" on the card
     (``REMAT_TOL``); every leaf's gradient nonzero.  For mamba2 also the
     gradient through ``SSDScanFn`` (K2 "fma" forward) against autograd
-    through the plain scan on the card, and the bf16 step (K2 "tc") against
+    through the plain scan on the card, and the bf16 step (K2 "wg") against
     the f32 one (``BF16_GRAD_TOL``)."""
     import torch
     from repro_torch.configs import get_config
@@ -1764,7 +1837,7 @@ def check_train_grads():
         wrappers = _reset_launches()
         loss, grads = _grads_of(lm, batch)
         r["k2_launches"] = dict(wrappers["K2"].launches_by_variant)
-        if cfg.family == "ssm" and r["k2_launches"] != {"tc": 0, "fma": 1}:
+        if cfg.family == "ssm" and r["k2_launches"] != {"wg": 0, "tc": 0, "fma": 1}:
             fail(f"{arch} 1 layer f32 step: K2 launches {r['k2_launches']}, want fma 1 "
                  "(the forward: remat \"dots\" keeps K2's outputs)")
         zero = [k for k, g in grads.items() if not bool(g.abs().max() > 0)]
@@ -1801,7 +1874,8 @@ def check_train_grads():
             lm_bf.requires_grad_(True)
             wrappers = _reset_launches()
             loss_bf, grads_bf = _grads_of(lm_bf, batch, "bfloat16")
-            if wrappers["K2"].launches_by_variant != {"tc": 1, "fma": 0}:
+            want = {"wg": 0, "tc": 0, "fma": 0, _k2_variant_of(cfg): 1}
+            if wrappers["K2"].launches_by_variant != want:
                 fail(f"{arch} bf16 step: K2 launches {wrappers['K2'].launches_by_variant}")
             rel = {k: v * BF16_GRAD_TOL for k, v in
                    _grad_shares(grads_bf, grads, BF16_GRAD_TOL).items()}
@@ -2101,7 +2175,8 @@ def run_bench_tables():
         if d.get("n") != CB_CALLS or not all(math.isfinite(x) for x in vals):
             fail(f"benchmarks.run kernel duets: {name} {d}, want {CB_CALLS} pairs and a finite "
                  "median and CI")
-    if launches["K2"] < 1 or by_variant["K2"]["tc"] or launches["K1"]:
+    if (launches["K2"] < 1 or launches["K2"] != by_variant["K2"]["fma"]
+            or launches["K1"]):
         fail(f"benchmarks.run: launches {launches} {by_variant}; want K2 'fma' (the SSD duet, "
              "f32) at least once and K1 none")
     harness_s = {name: us / 1e6 for name, (us, _) in rows.items()}
@@ -2198,13 +2273,15 @@ def check_serve_batch(arch_key):
     plain version on the inputs the model gave its first call."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_hmajor,
-                                                     flash_attention_hmajor_plain)
+                                                     flash_attention_hmajor_plain, k1_variant)
     from repro_torch.kernels.ssd_scan import ssd_scan_hmajor, ssd_scan_hmajor_plain
     res, launches, by_variant, first, shapes, out, wall = _serve_batch(arch_key)
     cfg = res.lm.cfg
     kernel = "K1" if cfg.family != "ssm" else "K2"
     want = {"K1": 0, "K2": 0, kernel: cfg.num_layers}
-    if launches != want or by_variant[kernel]["tc"] != cfg.num_layers:
+    variant = (k1_variant(torch.bfloat16, cfg.head_dim) if kernel == "K1"
+               else _k2_variant_of(cfg))                 # "tc" at reduced()'s widths
+    if launches != want or by_variant[kernel][variant] != cfg.num_layers:
         fail(f"serve_batch {arch_key}: launches {launches} {by_variant}, want {want} on the "
              "tensor cores, all in the prefill")
     if res.tokens.shape != (4, 16) or not torch.isfinite(
@@ -2305,9 +2382,9 @@ def _serve_times(res, prefill_warm_ms, checks):
             "tok_per_s": 4 * (GEN - 1) / res.decode_s, "checks": checks}
 
 
-_TIME_KEYS = ("variant", "ms", "device_ms", "tc_ms", "tc_device_ms", "fma_ms", "plain_ms",
-              "library_ms", "library_device_ms", "device_tflops",
-              "bound_ms", "bound_by")
+_TIME_KEYS = ("variant", "segments", "ms", "device_ms", "tc_ms", "tc_device_ms", "fma_ms",
+              "plain_ms", "library_ms", "library_device_ms", "device_tflops",
+              "bound_ms", "bound_by", "bound_share", "tc_bound_share", "segment_sweep")
 
 
 def _kernel_line(name, source, replaces, launches, variants, duet_launches, cli_launches,
@@ -2339,14 +2416,17 @@ def _kernel_line(name, source, replaces, launches, variants, duet_launches, cli_
 # (a) cells built by ``launch.cells.build_cell`` on a real 1x1 mesh on the
 # card, full width, seeded random bf16 weights: (arch, shape, global batch
 # or None for the shape's own, config overrides, launches of one run by
-# kernel and variant)
+# kernel and variant; "k2_variant" stands for ``k2_variant``'s choice at the
+# model's widths)
 CELL_RUNS = [
     ("internlm2-1.8b", "prefill_32k", 1, {"attention_impl": "flash"},
      {"K1": {"wg": 24}, "K2": {}}),
-    ("mamba2-1.3b", "prefill_32k", 1, None, {"K1": {}, "K2": {"tc": 48}}),
+    ("mamba2-1.3b", "prefill_32k", 1, None, {"K1": {}, "K2": {"k2_variant": 48}}),
     ("internlm2-1.8b", "decode_32k", 32, None, {"K1": {}, "K2": {}}),
     ("mamba2-1.3b", "decode_32k", None, None, {"K1": {}, "K2": {}}),
 ]
+# "wg"'s segment counts timed at the mamba2 prefill_32k shape
+K2_SEGMENT_SWEEP = (1, 2, 3, 4, 6, 8, 12, 16, 32, 64)
 # K1 and K2 at the prefill_32k cells' shapes (batch 1)
 CELL_SHAPES = [
     ("K1 internlm2 prefill_32k", "K1",
@@ -2554,7 +2634,7 @@ def check_cell_shapes():
                            plain=_k1_plain_rows)
         else:
             t = time_k2_at(shape["B"], shape["S"], shape["H"], shape["G"], shape["P"],
-                           shape["N"], seed=410 + i, variants=False)
+                           shape["N"], seed=410 + i, variants=False, sweep=K2_SEGMENT_SWEEP)
         entry = {"name": label, "shape": shape, **held,
                  **({"tc": tc_held} if tc_held else {}),
                  **{k: t[k] for k in _TIME_KEYS + ("flops", "bytes") if k in t}}
@@ -2596,6 +2676,8 @@ def run_cell_on_card(arch, shape, batch, overrides, want, card):
                       device="cuda", seed=0, **kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    want = {k: {(_k2_variant_of(cell.lm.cfg) if v == "k2_variant" else v): n
+                for v, n in by.items()} for k, by in want.items()}
     torch.cuda.reset_peak_memory_stats()
     wrappers = _reset_launches()
     out = cell.run()

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels: mbarriers,
-// TMA tile loads, register reallocation (setmaxnreg), the warpgroup MMA
-// (wgmma) and its shared-memory matrix descriptors.
+// TMA tile loads and stores, register reallocation (setmaxnreg), the warpgroup MMA
+// (wgmma) and its shared-memory matrix descriptors, the async-proxy fence and
+// ldmatrix on swizzled tiles.
 //
 // Every shared tile that wgmma reads is a TMA load with 128-byte swizzle: a
 // row of 64 bf16 values (128 B) per tile row, rows 128 B apart, 16-byte chunk
@@ -79,6 +80,21 @@ __device__ __forceinline__ void named_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// Make this thread's ordinary shared-memory writes visible to the async
+// proxy (the wgmma that reads them next); a barrier among the writers follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ldmatrix .x4 .trans at a shared address: lanes 8i .. 8i + 7 give the row
+// addresses of matrix i (16 B each, so a 128-byte-swizzled row works as it
+// stands).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // ---- TMA ----------------------------------------------------------------------
 // Copy the box at coordinates (c0, c1, c2), innermost first, of the tensor map
 // into shared memory at `dst`; completion is reported to `bar` in bytes.
@@ -90,6 +106,32 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Copy the tile at `src` in shared memory to the box at (c0, c1, c2) of the
+// tensor map (elements outside the tensor are not written), as one bulk
+// async group of this thread; the source must stay put until
+// bulk_wait_read says that it has been read.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk groups have read their shared-memory sources.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk groups are complete (their writes done).
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---- register reallocation between warpgroups ---------------------------------
@@ -157,6 +199,19 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da, ui
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40),
         HOPPER_D8(48), HOPPER_D8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) = (scale_d ? d : 0) + A B; as above with n = 64.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

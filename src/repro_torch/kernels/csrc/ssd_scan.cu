@@ -12,12 +12,12 @@
 //   * the state starts at h0 (or zeros when h0 is null, the Pallas _init)
 //     and is emitted after the last chunk in f32; y is stored in x's type.
 //
-// Design.  One thread block per (b, h) walks every chunk of the sequence in
-// order, because CUDA blocks run in no order and cannot carry the [P, N]
-// state from one grid step to the next as the TPU grid does; the fp32 state
-// lives in shared memory for the whole sequence.  The kernel uses its own
-// chunk length Q = 64: at the model's chunk of 256 the fp32 [Q, Q] tile alone
-// would be 256 KiB, more than a block's 227 KB.  The result does not depend
+// Design.  CUDA blocks run in no order and cannot carry the [P, N] state from
+// one grid step to the next as the TPU grid does.  fma and tc give one thread
+// block per (b, h), which walks every chunk of the sequence in order with the
+// fp32 state on chip; wg splits the sequence (below).  The kernels use their
+// own chunk length Q = 64: at the model's chunk of 256 the fp32 [Q, Q] tile
+// alone would be 256 KiB, more than a block's 227 KB.  The result does not depend
 // on the chunk length beyond float rounding.  Rows past S are masked in the
 // kernel (x, B, C read as 0, dt = 0, which makes them exact no-ops), not
 // padded on the host.  exp(cum_i - cum_j) overflows for i < j, so it is
@@ -30,7 +30,7 @@
 // H100 it is bound by memory bytes: 78.6 MB at 3.35 TB/s = 23.5 us, not by
 // operations (13.3 us at the bf16 tensor-core rate).
 //
-// Two variants, chosen by the caller (kernels/ssd_scan.py::k2_variant):
+// Three variants, chosen by the caller (kernels/ssd_scan.py::k2_variant):
 //
 // * fma (variant 0): f32 x (and bf16 at a P or N that is not a multiple of
 //   8).  fp32 FMA on CUDA cores over f32 tiles in shared memory (133 KB a
@@ -62,14 +62,42 @@
 //   chunk costs two block barriers.  Tiles are bf16 with rows padded by
 //   16 bytes (conflict-free ldmatrix): at P <= 64, 105 KB a block, so two
 //   4-warp blocks fit on an SM and the 256 blocks of the serve shape run in
-//   one wave on 132 SMs.  If one block per (b, h) still leaves the card
-//   latency-bound, the next step is a chunk-parallel split: per-chunk states,
-//   a short pass over the states, then per-chunk outputs.
+//   one wave on 132 SMs.  A block spends ~8.5 us on a chunk (a serial chain of
+//   copies, scans, products and two block barriers), and the mamba2
+//   prefill_32k cell gives only 64 blocks for 132 SMs: the pace is the
+//   design's, not the tensor cores' or memory's.  The serve paths take wg;
+//   tc stays for the other bf16 shapes and as wg's before-time.
+// * wg (variant 2, repro_ssd_scan_wg_fwd): bf16 x, B, C with P and N in {64,
+//   128}, every full-width path (mamba2 and Jamba).  The sequence split: each
+//   (b, h) sequence is cut into nseg segments of whole chunks
+//   (kernels/ssd_scan.py::k2_segments fills the card's block slots in one
+//   wave), in at most three launches on the stream, with no atomics, so the
+//   result is the same bit for bit from run to run: (1) one block per (b, h,
+//   segment) but the last runs the state update from zero over its segment
+//   and writes its state S_s and decay sum T_s = sum dt a; (2) a pass carries
+//   the state across segments, h_in[s + 1] = exp(T_s) h_in[s] + S_s (every
+//   factor is exp of a non-positive number, so nothing overflows); (3) one
+//   block per (b, h, segment) runs the whole chunk recurrence from h_in[s]
+//   and writes y, and the last segment the final state.  With one segment
+//   only (3) runs, from h0.  The split costs a second read of x and B in (1)
+//   and the scratch states [B, H, nseg - 1, P, N] fp32.  Inside a block:
+//   Hopper's TMA loads the chunk tiles (3-D maps over [B H, S, P] and [B G,
+//   S, N], so the ragged tail reads zeros) into a ring issued by a producer,
+//   and one consumer warpgroup per 64 rows of P runs the four products on
+//   wgmma with the chunk's 64 rows as its M (ssd_scan_wg_kernel below).
+//   Operand precision: wgmma's tf32 form reads only K-major shared operands
+//   with no transpose, so x as TMA lands it ([Q, P], P contiguous) cannot be
+//   att x's tf32 operand; wg takes the second route instead: att, the state
+//   operand of C state^T and x .* w of the state update enter the products
+//   as hi + lo bf16 pairs (two bf16 products each, about 16 significant
+//   bits, more than tf32's 11), so its operand rounding is far under that of
+//   tc (tests/test_torch_tc_rounding.py::k2_wg_model holds it).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tc_common.cuh"
 
 namespace {
@@ -741,6 +769,483 @@ cudaError_t dispatch_tc(int tf32, const void* x, const void* dt, const void* A,
                                                  P, N, stream);
 }
 
+// ---- wg: bf16 on Hopper's warpgroup MMA, fed by TMA, split over the sequence --
+constexpr int kWgPanel = kQ * 128;   // one 64-column panel of a 64-row bf16 tile, bytes
+// The ring of x and B tiles.  C has one buffer of its own, freed as soon as
+// C B^T and C state^T are done: a second would leave no room for two blocks
+// a SM at P = 64.
+constexpr int kWgStages = 2;
+
+// Shared memory of the wg kernel, in bytes from a 1024-aligned base: the ring
+// of x and B tiles, C's tile, each consumer warpgroup's bf16 copy of its state
+// rows (hi, then lo) and its y tile on the way out, each consumer warp's dt /
+// cum / w table of the chunk, then the barriers full[stages], empty[stages],
+// full C, empty C.  Every tile is 64 rows by 64-column panels, 128-byte
+// swizzled.  OUT is the outputs kernel; without it, the segment-states kernel
+// (no C, no state copy, no y).  At P = 64, N = 128 the outputs kernel takes
+// 108 KB (two blocks a SM), the states kernel 52 KB.
+template <int PM, int NM, bool OUT>
+struct WgLayout {
+  static constexpr int kWG = PM / 64;                     // consumer warpgroups
+  static constexpr int kConsumers = 128 * kWG;
+  // the producer: a warpgroup that gives its registers to the consumers
+  // (setmaxnreg) in the outputs kernel, one warp in the states kernel
+  static constexpr int kThreads = kConsumers + (OUT ? 128 : 32);
+  static constexpr int kX = (PM / 64) * kWgPanel;
+  static constexpr int kBC = (NM / 64) * kWgPanel;        // a B or C tile; a state copy
+  static constexpr int kStage = kX + kBC;
+  static constexpr int kC = kWgStages * kStage;
+  static constexpr int kSb = kC + (OUT ? kBC : 0);
+  static constexpr int kY = kSb + (OUT ? kWG * 2 * kBC : 0);
+  static constexpr int kTab = kY + (OUT ? kWG * kWgPanel : 0);
+  static constexpr int kBar = kTab + kConsumers / 32 * 3 * kQ * (int)sizeof(float);
+  static constexpr int kBytes = kBar + (2 * kWgStages + 2) * 8;
+  static constexpr int kAlloc = kBytes + 1024;            // slack to align the base
+  static constexpr int kMinBlocks = PM == 64 ? (OUT ? 2 : 3) : 1;
+  // the outputs kernel's registers a thread after setmaxnreg: the launch
+  // gives 65536 / (threads x blocks) (128 at P = 64, 168 at P = 128); the
+  // producer keeps the least setmaxnreg allows, 24, and the consumers share
+  // the rest (fewer spill in the chunk loop)
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = PM == 64 ? 232 : 240;
+};
+
+// a, b rounded to bf16 (hi) and what that leaves, rounded again (lo): hi + lo
+// holds about 16 significant bits, and a product on both is two bf16 products.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - f.x, b - f.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float load_dt(const void* dt, int dt_bf16, int64_t i) {
+  return dt_bf16 ? __bfloat162float(static_cast<const bf16*>(dt)[i])
+                 : static_cast<const float*>(dt)[i];
+}
+
+// One block per (head, segment, batch) over the chunks [c_lo, c_hi) of its
+// segment, c_lo = seg * nc / nseg.  The last warp(group) is the producer: one thread
+// issues the TMA loads of each chunk's x and B tiles into a two-stage ring
+// (full and empty mbarriers) and, in the outputs kernel, C into a buffer of
+// its own, released as soon as the products that read it are done.  Each
+// consumer warpgroup owns 64 rows of P: its fp32 state rows [64, NM] live in
+// wgmma accumulators for the whole segment.  Per chunk, every consumer warp
+// scans dt * a with shuffles and keeps dt, cum and w = exp(total - cum) dt in
+// a table of its own; then
+//   outputs:  CB = C B^T (m64n64, K = N, both K-major) and Y = C state^T
+//             from the state copy (m64n64 per warpgroup), issued together;
+//             att = CB .* exp(cum_i - cum_j) dt_j on i >= j, in registers,
+//             while Y runs; Y = exp(cum_i) Y + att x (A att from registers,
+//             x MN-major);
+//   both:     state = exp(total) state + (x .* w)^T B (m64nN, K = 64; A from
+//             registers through ldmatrix.trans of x, B read MN-major), issued
+//             under att x;
+//   outputs:  y in bf16 into a swizzled tile that TMA stores, and the new
+//             state into the copy (between the same two warpgroup barriers).
+// (The state update goes after C B^T and C state^T so that no more than
+// 160 accumulator and operand registers are in flight at once: more spills
+// them, and ptxas then waits on every product.)
+// att, the state copy and x .* w enter the products as hi + lo bf16 pairs
+// (split_bf16), so the only roundings are fp32 sums: every product runs on
+// bf16 operands at the bf16 rate, with the precision of about 16 bits.  The
+// states kernel (OUT false) runs only the state update, from zero, and
+// writes the segment's state and its decay sum T = sum of dt * a.
+template <int PM, int NM, bool OUT>
+__global__ void __launch_bounds__(WgLayout<PM, NM, OUT>::kThreads,
+                                  WgLayout<PM, NM, OUT>::kMinBlocks)
+ssd_scan_wg_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_b,
+                   const __grid_constant__ CUtensorMap tm_c,
+                   const __grid_constant__ CUtensorMap tm_y, const void* __restrict__ dt,
+                   int dt_bf16, const float* __restrict__ A, const float* __restrict__ h0,
+                   float* __restrict__ state,
+                   float* __restrict__ seg_state, float* __restrict__ seg_decay, int H, int G,
+                   int S, int nseg) {
+  using L = WgLayout<PM, NM, OUT>;
+  constexpr int kNA = NM / 2;    // accumulator floats of the m64n{NM} state
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = tc::smem_addr(wg_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = wg_smem + (base - raw);
+  const uint32_t bar = base + L::kBar;
+  auto full_xb = [&](int s) { return bar + 8 * s; };
+  auto empty_xb = [&](int s) { return bar + 8 * (kWgStages + s); };
+  const uint32_t full_c = bar + 16 * kWgStages, empty_c = full_c + 8;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x, seg = blockIdx.y, b = blockIdx.z;
+  const int gi = h / (H / G);
+  const int nc = (S + kQ - 1) / kQ;
+  const int c_lo = (int)((int64_t)seg * nc / nseg);
+  const int n_it = (int)((int64_t)(seg + 1) * nc / nseg) - c_lo;
+  const int64_t bh = (int64_t)b * H + h;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(full_xb(s), 1);
+      hopper::mbar_init(empty_xb(s), L::kConsumers);   // every consumer thread releases
+    }
+    hopper::mbar_init(full_c, 1);
+    hopper::mbar_init(empty_c, L::kConsumers);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= L::kConsumers) {
+    // ---- producer ----
+    if constexpr (OUT) hopper::reg_dealloc<L::kProducerRegs>();
+    if (tid == L::kConsumers) {
+      const int bg = b * G + gi;
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kWgStages, row = (c_lo + it) * kQ;
+        const uint32_t sx = base + s * L::kStage;
+        hopper::mbar_wait(empty_xb(s), ((it / kWgStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full_xb(s), L::kStage);
+#pragma unroll
+        for (int p = 0; p < PM / 64; ++p)
+          hopper::tma_load_3d(sx + p * kWgPanel, &tm_x, full_xb(s), p * 64, row, (int)bh);
+#pragma unroll
+        for (int p = 0; p < NM / 64; ++p)
+          hopper::tma_load_3d(sx + L::kX + p * kWgPanel, &tm_b, full_xb(s), p * 64, row, bg);
+        if constexpr (OUT) {
+          hopper::mbar_wait(empty_c, (it & 1) ^ 1);
+          hopper::mbar_expect_tx(full_c, L::kBC);
+#pragma unroll
+          for (int p = 0; p < NM / 64; ++p)
+            hopper::tma_load_3d(base + L::kC + p * kWgPanel, &tm_c, full_c, p * 64, row, bg);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  if constexpr (OUT) hopper::reg_alloc<L::kConsumerRegs>();
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int prow = 64 * wg + 16 * warp + g;   // this thread's state rows prow, prow + 8
+  const int qrow = 16 * warp + g;             // and chunk rows qrow, qrow + 8
+  const float a = A[h];
+  float* tdt = reinterpret_cast<float*>(gbase + L::kTab) + (tid / 32) * 3 * kQ;
+  float* tcum = tdt + kQ;
+  float* tw = tcum + kQ;
+  const uint32_t sSb = base + L::kSb + wg * 2 * L::kBC;   // this warpgroup's state copy
+  unsigned char* gSb = gbase + L::kSb + wg * 2 * L::kBC;
+  const uint32_t sY = base + L::kY + wg * kWgPanel;       // and its y tile on the way out
+  unsigned char* gY = gbase + L::kY + wg * kWgPanel;
+  const bool y_issuer = tid % 128 == 0;                   // the thread that stores it
+
+  // the fp32 state rows in m64n{NM} accumulator layout: from the segment's
+  // incoming state (outputs) or zero (states)
+  float st[kNA];
+  {
+    const float* init = nullptr;
+    if constexpr (OUT)
+      init = seg > 0 ? seg_state + (bh * (nseg - 1) + seg - 1) * PM * NM
+                     : (h0 != nullptr ? h0 + bh * PM * NM : nullptr);
+#pragma unroll
+    for (int i = 0; i < kNA / 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 v = init != nullptr
+            ? *reinterpret_cast<const float2*>(init + (int64_t)(prow + 8 * r) * NM + 8 * i + 2 * t)
+            : make_float2(0.f, 0.f);
+        st[4 * i + 2 * r] = v.x;
+        st[4 * i + 2 * r + 1] = v.y;
+      }
+  }
+  // the state copy that C state^T reads: [hi, lo][N / 64 panels][64 rows][128 B]
+  auto write_state_copy = [&]() {
+#pragma unroll
+    for (int i = 0; i < kNA / 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 16 * warp + g + 8 * r;
+        const int off = (i / 8) * kWgPanel + p * 128 + (((i % 8) ^ (p & 7)) << 4) + 4 * t;
+        uint32_t hi, lo;
+        split_bf16(st[4 * i + 2 * r], st[4 * i + 2 * r + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(gSb + off) = hi;
+        *reinterpret_cast<uint32_t*>(gSb + L::kBC + off) = lo;
+      }
+  };
+
+  float dn0 = 0.f, dn1 = 0.f;   // dt of rows 2 lane, 2 lane + 1 of the next chunk
+  auto fetch_dt = [&](int c) {
+    const int r0 = c * kQ + 2 * lane;
+    dn0 = r0 < S ? load_dt(dt, dt_bf16, bh * S + r0) : 0.f;
+    dn1 = r0 + 1 < S ? load_dt(dt, dt_bf16, bh * S + r0 + 1) : 0.f;
+  };
+  fetch_dt(c_lo);
+  float seg_total = 0.f;
+  if constexpr (OUT) {
+    write_state_copy();
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + wg, 128);
+  }
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kWgStages, row0 = (c_lo + it) * kQ;
+    // inclusive prefix sum of dt * a in fp32: two rows a lane, then a
+    // shuffle scan over the lanes (every warp, into its own table)
+    const float d0 = dn0, d1 = dn1;
+    if (it + 1 < n_it) fetch_dt(c_lo + it + 1);
+    const float v0 = d0 * a, v1 = d1 * a, pair = v0 + v1;
+    float incl = pair;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    const float cum0 = incl - pair + v0, cum1 = incl;
+    const float total = __shfl_sync(0xffffffffu, incl, 31);
+    seg_total += total;
+    __syncwarp();   // the last chunk's readers of the table are done
+    *reinterpret_cast<float2*>(tdt + 2 * lane) = make_float2(d0, d1);
+    *reinterpret_cast<float2*>(tcum + 2 * lane) = make_float2(cum0, cum1);
+    *reinterpret_cast<float2*>(tw + 2 * lane) =
+        make_float2(expf(total - cum0) * d0, expf(total - cum1) * d1);
+    __syncwarp();
+
+    const uint32_t sX = base + s * L::kStage + wg * kWgPanel;   // this warpgroup's x columns
+    const uint32_t sB = base + s * L::kStage + L::kX;
+    const uint32_t sC = base + L::kC;
+    hopper::mbar_wait(full_xb(s), (it / kWgStages) & 1);
+
+    float yacc[32];
+    uint32_t ah[4][4], al[4][4];   // att as hi + lo A fragments of att x
+    if constexpr (OUT) {
+      hopper::mbar_wait(full_c, it & 1);
+      float cb[32];
+      hopper::fence_regs(cb);
+      hopper::fence_regs(yacc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NM / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kWgPanel + (kk % 4) * 32;
+        hopper::wgmma_m64n64_ss(cb, hopper::desc_sw128(sC + off, 16, 1024),
+                                hopper::desc_sw128(sB + off, 16, 1024), kk > 0);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+        for (int kk = 0; kk < NM / 16; ++kk) {
+          const uint32_t off = (kk / 4) * kWgPanel + (kk % 4) * 32;
+          hopper::wgmma_m64n64_ss(yacc, hopper::desc_sw128(sC + off, 16, 1024),
+                                  hopper::desc_sw128(sSb + hl * L::kBC + off, 16, 1024),
+                                  hl > 0 || kk > 0);
+        }
+      hopper::wgmma_commit();
+
+      // att on the C B^T fragments: row i = qrow (+ 8), key j = 8 nt + 2t (+ 1);
+      // above the diagonal cum_i - cum_j > 0 and its exp overflows, so the
+      // exponent is clamped at 0 there and the entry masked to 0 by its dt,
+      // without a branch (a branch an entry diverges the warp 32 times a chunk)
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(cb);
+      const float ci0 = tcum[qrow], ci1 = tcum[qrow + 8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int j = 8 * nt + 2 * t;
+        const float2 cj = *reinterpret_cast<const float2*>(tcum + j);
+        const float2 dj = *reinterpret_cast<const float2*>(tdt + j);
+        // dt_j, or 0 above the diagonal: a select, so every lane computes the same
+        const float d00 = qrow >= j ? dj.x : 0.f, d01 = qrow >= j + 1 ? dj.y : 0.f;
+        const float d10 = qrow + 8 >= j ? dj.x : 0.f, d11 = qrow + 8 >= j + 1 ? dj.y : 0.f;
+        const float e0 = cb[4 * nt] * __expf(fminf(ci0 - cj.x, 0.f)) * d00;
+        const float e1 = cb[4 * nt + 1] * __expf(fminf(ci0 - cj.y, 0.f)) * d01;
+        const float e2 = cb[4 * nt + 2] * __expf(fminf(ci1 - cj.x, 0.f)) * d10;
+        const float e3 = cb[4 * nt + 3] * __expf(fminf(ci1 - cj.y, 0.f)) * d11;
+        split_bf16(e0, e1, ah[nt / 2][(nt & 1) * 2], al[nt / 2][(nt & 1) * 2]);
+        split_bf16(e2, e3, ah[nt / 2][(nt & 1) * 2 + 1], al[nt / 2][(nt & 1) * 2 + 1]);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(yacc);
+      hopper::mbar_arrive(empty_c);   // C is read by nothing more in this chunk
+      const float e0 = expf(ci0), e1 = expf(ci1);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        yacc[4 * i] *= e0;
+        yacc[4 * i + 1] *= e0;
+        yacc[4 * i + 2] *= e1;
+        yacc[4 * i + 3] *= e1;
+      }
+      hopper::fence_regs(yacc);
+      hopper::fence_regs(ah);
+      hopper::fence_regs(al);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dx = hopper::desc_sw128(sX + kk * 16 * 128, kWgPanel, 1024);
+        hopper::wgmma_m64n64_rs_t(yacc, ah[kk], dx);
+        hopper::wgmma_m64n64_rs_t(yacc, al[kk], dx);
+      }
+      hopper::wgmma_commit();
+    }
+
+    // (x .* w)^T as the A operand of the state update, k-step kk = rows
+    // 16 kk .. 16 kk + 15 of the chunk: ldmatrix.trans gives x at (p g | g + 8,
+    // j 2t, 2t + 1 | + 8, + 9), which w_j scales before the split.  It runs
+    // under att x (after C B^T and C state^T, so that fewer accumulators are
+    // in flight at once).
+    uint32_t xh[4][4], xl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int j = 16 * kk + ((lane >> 4) & 1) * 8 + (lane & 7);
+      const int ch = 2 * warp + ((lane >> 3) & 1);
+      uint32_t r[4];
+      hopper::ldsm_x4_trans(r, sX + j * 128 + ((ch ^ (j & 7)) << 4));
+      const float2 wa = *reinterpret_cast<const float2*>(tw + 16 * kk + 2 * t);
+      const float2 wb = *reinterpret_cast<const float2*>(tw + 16 * kk + 8 + 2 * t);
+      float2 f = tc::unpack_bf16(r[0]);
+      split_bf16(f.x * wa.x, f.y * wa.y, xh[kk][0], xl[kk][0]);
+      f = tc::unpack_bf16(r[1]);
+      split_bf16(f.x * wa.x, f.y * wa.y, xh[kk][1], xl[kk][1]);
+      f = tc::unpack_bf16(r[2]);
+      split_bf16(f.x * wb.x, f.y * wb.y, xh[kk][2], xl[kk][2]);
+      f = tc::unpack_bf16(r[3]);
+      split_bf16(f.x * wb.x, f.y * wb.y, xh[kk][3], xl[kk][3]);
+    }
+    {
+      const float et = expf(total);
+#pragma unroll
+      for (int i = 0; i < kNA; ++i) st[i] *= et;
+    }
+    hopper::fence_regs(st);
+    hopper::fence_regs(xh);
+    hopper::fence_regs(xl);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = hopper::desc_sw128(sB + kk * 16 * 128, kWgPanel, 1024);
+      if constexpr (NM == 128) {
+        hopper::wgmma_m64n128_rs_t(st, xh[kk], db);
+        hopper::wgmma_m64n128_rs_t(st, xl[kk], db);
+      } else {
+        hopper::wgmma_m64n64_rs_t(st, xh[kk], db);
+        hopper::wgmma_m64n64_rs_t(st, xl[kk], db);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(xh);
+    hopper::fence_regs(xl);
+    hopper::mbar_arrive(empty_xb(s));   // this thread is done with the stage's x and B
+    if constexpr (OUT) {
+      hopper::fence_regs(yacc);
+      hopper::fence_regs(ah);
+      hopper::fence_regs(al);
+      if (y_issuer) hopper::bulk_wait_read();   // the last chunk's y tile has left
+      hopper::named_sync(1 + wg, 128);   // and every warp's products that read the copy are done
+      // y in bf16 into the swizzled y tile, which TMA stores (rows past S are
+      // not written), and the new state into the copy
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q = qrow + 8 * r;
+          *reinterpret_cast<__nv_bfloat162*>(gY + q * 128 + ((i ^ (q & 7)) << 4) + 4 * t) =
+              __floats2bfloat162_rn(yacc[4 * i + 2 * r], yacc[4 * i + 2 * r + 1]);
+        }
+      write_state_copy();
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + wg, 128);
+      if (y_issuer) {
+        hopper::tma_store_3d(&tm_y, sY, 64 * wg, row0, (int)bh);
+        hopper::bulk_commit();
+      }
+    }
+  }
+  if constexpr (OUT) {
+    if (y_issuer) hopper::bulk_wait();
+  }
+
+  float* out;
+  if constexpr (OUT) {
+    if (seg != nseg - 1) return;
+    out = state + bh * PM * NM;
+  } else {
+    out = seg_state + (bh * (nseg - 1) + seg) * PM * NM;
+    if (tid == 0) seg_decay[bh * (nseg - 1) + seg] = seg_total;
+  }
+#pragma unroll
+  for (int i = 0; i < kNA / 4; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(out + (int64_t)(prow + 8 * r) * NM + 8 * i + 2 * t) =
+          make_float2(st[4 * i + 2 * r], st[4 * i + 2 * r + 1]);
+}
+
+// The state pass: for each (b, h), h_in[0] = h0 (or 0) and h_in[s + 1] =
+// exp(T_s) h_in[s] + S_s, written over S_s; segment s + 1's outputs start
+// from it.  One thread per state entry walks the segments in order.
+__global__ void ssd_scan_wg_pass(float* __restrict__ seg_state,
+                                 const float* __restrict__ seg_decay,
+                                 const float* __restrict__ h0, int pn, int nseg) {
+  const int64_t bh = blockIdx.x;
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;
+  if (e >= pn) return;
+  float v = h0 != nullptr ? h0[bh * pn + e] : 0.f;
+  for (int s = 0; s < nseg - 1; ++s) {
+    float* p = seg_state + (bh * (nseg - 1) + s) * pn + e;
+    v = expf(seg_decay[bh * (nseg - 1) + s]) * v + *p;
+    *p = v;
+  }
+}
+
+template <int PM, int NM, bool OUT>
+cudaError_t launch_wg_kernel(const CUtensorMap& tm_x, const CUtensorMap& tm_b,
+                             const CUtensorMap& tm_c, const CUtensorMap& tm_y, const void* dt,
+                             int dt_bf16, const void* A, const void* h0, void* state,
+                             void* seg_state, void* seg_decay, int B, int H, int G, int S,
+                             int nseg, cudaStream_t stream) {
+  using L = WgLayout<PM, NM, OUT>;
+  auto kernel = ssd_scan_wg_kernel<PM, NM, OUT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, OUT ? nseg : nseg - 1, B);
+  kernel<<<grid, L::kThreads, L::kAlloc, stream>>>(
+      tm_x, tm_b, tm_c, tm_y, dt, dt_bf16, static_cast<const float*>(A),
+      static_cast<const float*>(h0), static_cast<float*>(state),
+      static_cast<float*>(seg_state), static_cast<float*>(seg_decay), H, G, S, nseg);
+  return cudaGetLastError();
+}
+
+// At most three launches on `stream`: with nseg > 1 the segment states of
+// segments 0 .. nseg - 2, the state pass, then the outputs of every segment
+// (with nseg = 1 the outputs alone, from h0).  Each launch's error is checked
+// before the next is made.
+template <int PM, int NM>
+cudaError_t launch_wg(const void* x, const void* dt, int dt_bf16, const void* A, const void* Bm,
+                      const void* Cm, const void* h0, void* y, void* state, void* seg_state,
+                      void* seg_decay, int B, int H, int G, int S, int nseg,
+                      cudaStream_t stream) {
+  CUtensorMap tm_x, tm_b, tm_c, tm_y;
+  if (!hopper::bf16_panel_map(&tm_x, x, B * H, S, PM, kQ) ||
+      !hopper::bf16_panel_map(&tm_b, Bm, B * G, S, NM, kQ) ||
+      !hopper::bf16_panel_map(&tm_c, Cm, B * G, S, NM, kQ) ||
+      !hopper::bf16_panel_map(&tm_y, y, B * H, S, PM, kQ))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (nseg > 1) {
+    err = launch_wg_kernel<PM, NM, false>(tm_x, tm_b, tm_c, tm_y, dt, dt_bf16, A, h0, state,
+                                          seg_state, seg_decay, B, H, G, S, nseg, stream);
+    if (err != cudaSuccess) return err;
+    const int pn = PM * NM;
+    ssd_scan_wg_pass<<<dim3(B * H, (pn + 255) / 256), 256, 0, stream>>>(
+        static_cast<float*>(seg_state), static_cast<const float*>(seg_decay),
+        static_cast<const float*>(h0), pn, nseg);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_wg_kernel<PM, NM, true>(tm_x, tm_b, tm_c, tm_y, dt, dt_bf16, A, h0, state,
+                                        seg_state, seg_decay, B, H, G, S, nseg, stream);
+}
+
 // Dynamic shared memory of a launch and the blocks of it that fit on an SM.
 template <typename Kernel>
 cudaError_t occupancy(Kernel kernel, int threads, size_t smem, int* smem_bytes,
@@ -797,12 +1302,56 @@ extern "C" int repro_ssd_scan_fwd(const void* x, const void* dt, const void* A,
   return (int)cudaErrorInvalidValue;
 }
 
+// The wg variant: bfloat16 x, B, C and y (16-byte aligned) with P and N in {64,
+// 128}; dt float32 (dt_dtype 0) or bfloat16 (1); y bfloat16, state float32;
+// h0 may be null.  The sequence is cut into nseg segments of whole 64-row
+// chunks (1 <= nseg <= ceil(S / 64)); with nseg > 1, seg_state [B, H, nseg -
+// 1, P, N] and seg_decay [B, H, nseg - 1] (float32) are scratch that the call
+// overwrites.  Runs one kernel (nseg = 1) or three, in order on `stream`, and
+// does not synchronise; returns the first launch's error that is not 0.
+extern "C" int repro_ssd_scan_wg_fwd(const void* x, const void* dt, const void* A,
+                                     const void* Bm, const void* Cm, const void* h0, void* y,
+                                     void* state, void* seg_state, void* seg_decay,
+                                     int dt_dtype, int B, int H, int G, int S, int P, int N,
+                                     int nseg, void* stream) {
+  const int nc = S >= 1 ? (S + kQ - 1) / kQ : 0;
+  if (B < 1 || H < 1 || G < 1 || H % G != 0 || S < 1 || B > 65535 ||
+      (P != 64 && P != 128) || (N != 64 && N != 128) || (dt_dtype != 0 && dt_dtype != 1) ||
+      nseg < 1 || nseg > nc || nseg > 65535 ||
+      (nseg > 1 && (seg_state == nullptr || seg_decay == nullptr)) ||
+      ((uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm | (uintptr_t)y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P == 64 && N == 128)
+    return (int)launch_wg<64, 128>(x, dt, dt_dtype, A, Bm, Cm, h0, y, state, seg_state,
+                                   seg_decay, B, H, G, S, nseg, s);
+  if (P == 128 && N == 128)
+    return (int)launch_wg<128, 128>(x, dt, dt_dtype, A, Bm, Cm, h0, y, state, seg_state,
+                                    seg_decay, B, H, G, S, nseg, s);
+  if (P == 64)
+    return (int)launch_wg<64, 64>(x, dt, dt_dtype, A, Bm, Cm, h0, y, state, seg_state,
+                                  seg_decay, B, H, G, S, nseg, s);
+  return (int)launch_wg<128, 64>(x, dt, dt_dtype, A, Bm, Cm, h0, y, state, seg_state,
+                                 seg_decay, B, H, G, S, nseg, s);
+}
+
 // The dynamic shared memory of the kernel that a call of `variant` at head
-// dim P launches (bf16 x for tc, f32 for fma; dt f32), and how many of its
-// blocks fit on an SM.  Returns a cudaError_t.
+// dim P launches (bf16 x for tc and wg, f32 for fma; dt f32; for wg the
+// outputs kernel at N = 128), and how many of its blocks fit on an SM.
+// Returns a cudaError_t.
 extern "C" int repro_ssd_scan_occupancy(int variant, int P, int* smem_bytes,
                                         int* blocks_per_sm) {
-  if (P < 1 || P > 128 || (variant != 0 && variant != 1)) return (int)cudaErrorInvalidValue;
+  if (P < 1 || P > 128 || variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
+  if (variant == 2) {
+    if (P == 64)
+      return (int)occupancy(ssd_scan_wg_kernel<64, 128, true>, WgLayout<64, 128, true>::kThreads,
+                            WgLayout<64, 128, true>::kAlloc, smem_bytes, blocks_per_sm);
+    if (P == 128)
+      return (int)occupancy(ssd_scan_wg_kernel<128, 128, true>,
+                            WgLayout<128, 128, true>::kThreads, WgLayout<128, 128, true>::kAlloc,
+                            smem_bytes, blocks_per_sm);
+    return (int)cudaErrorInvalidValue;
+  }
   if (variant == 1)
     return P <= 64 ? (int)occupancy(ssd_scan_tc_kernel<float, bf16, false, 64>, 64 / 16 * 32,
                                     tc_smem_bytes<64>(), smem_bytes, blocks_per_sm)

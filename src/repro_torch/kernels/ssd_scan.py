@@ -4,10 +4,19 @@ plain version.
 Layout (head-major): x [B, H, S, P]; dt [B, H, S]; A [H];
 B_in/C_in [B, G, S, N]; outputs y [B, H, S, P] in x's type and the final
 state [B, H, P, N] in fp32.  The kernel (``csrc/ssd_scan.cu``) replaces the
-Pallas TPU kernel of ``repro.kernels.ssd_scan``: one block per (b, h)
-carries the fp32 state through every chunk of the sequence.  It has two
-variants: bf16 x, B and C run on the tensor cores ("tc"), f32 on CUDA cores
-in fp32 ("fma"); ``k2_variant`` chooses.
+Pallas TPU kernel of ``repro.kernels.ssd_scan``.  It has three variants;
+``k2_variant`` chooses:
+
+* "wg" (bf16 x, B and C at P and N of 64 or 128: every full-width path,
+  mamba2 and Jamba) cuts each (b, h) sequence into segments of whole 64-row
+  chunks (``k2_segments``) and runs Hopper's warpgroup MMA fed by TMA.  A
+  call is one CUDA kernel with one segment and three with more: the
+  segments' states from zero, a pass that carries the state across them,
+  then every segment's outputs from its incoming state.
+* "tc" (the other bf16 shapes: ``reduced()`` configs, P = N = 16) runs
+  ``mma.sync``, one block per (b, h) walking every chunk in order; it is
+  also the before-time of "wg" on the same inputs.
+* "fma" (f32, and bf16 that neither takes) runs fp32 FMA on CUDA cores.
 
 ``ssd_scan_hmajor`` launches the kernel for CUDA tensors and runs the plain
 version only for tensors on the CPU.  Every other tensor (on the meta
@@ -29,6 +38,7 @@ inputs that require grad, since its outputs would carry no gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -42,7 +52,13 @@ MAX_HEAD_DIM = 128     # P
 MAX_D_STATE = 128      # N
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANT_CODES = {"fma": 0, "tc": 1}
+_VARIANT_CODES = {"fma": 0, "tc": 1, "wg": 2}
+WG_DIMS = (64, 128)    # the P and N that "wg" takes
+WG_CHUNK = 64          # the kernels' own chunk length
+WG_MIN_CHUNKS = 4      # the least length of a segment, in chunks
+# blocks of the "wg" outputs kernel that fit on an SM (at N = 128), by P:
+# what its shared memory allows (chip_smoke.py reads the card's answer)
+WG_BLOCKS_PER_SM = {64: 2, 128: 1}
 # The tc kernel takes att @ x and C @ state^T on tf32 operands: on bf16
 # operands the mamba2 serve shape's y, before it is stored in bf16, was off
 # by 3.0e-2 on an H100, more than half of the 5e-2 tolerance (PERF.md).
@@ -51,11 +67,30 @@ TC_TF32 = True
 
 
 def k2_variant(x_dtype, P, N):
-    """"tc" (bf16 tensor-core kernel) for bfloat16 x, B, C with P, N <= 128
-    and multiples of 8 (16-byte rows for its cp.async copies); "fma" (fp32
-    CUDA-core kernel) for everything else, f32 included."""
-    return ("tc" if x_dtype == torch.bfloat16 and P <= MAX_HEAD_DIM and N <= MAX_D_STATE
-            and P % 8 == 0 and N % 8 == 0 else "fma")
+    """"wg" (wgmma and TMA, split over the sequence) for bfloat16 x, B, C
+    with P and N in ``WG_DIMS``; "tc" (mma.sync) for the other bfloat16 calls
+    with P, N <= 128 and multiples of 8 (16-byte rows for its cp.async
+    copies); "fma" (fp32 CUDA-core kernel) for everything else, f32
+    included."""
+    if x_dtype != torch.bfloat16:
+        return "fma"
+    if P in WG_DIMS and N in WG_DIMS:
+        return "wg"
+    return ("tc" if P <= MAX_HEAD_DIM and N <= MAX_D_STATE and P % 8 == 0 and N % 8 == 0
+            else "fma")
+
+
+def k2_segments(B, H, S, sm_count, blocks_per_sm=WG_BLOCKS_PER_SM[64]):
+    """How many segments "wg" cuts each (b, h) sequence of S positions into:
+    as many as fill the card's ``sm_count * blocks_per_sm`` block slots with
+    B * H * count blocks of the outputs kernel in one wave, at least one,
+    and no more than leave every segment ``WG_MIN_CHUNKS`` 64-row chunks
+    (one segment below twice that).  A second wave would cost a whole
+    segment's time for a few blocks, and each segment more costs the states
+    kernel and the pass more work (PERF.md: the sweep on the card).
+    """
+    most = max(1, -(-S // WG_CHUNK) // WG_MIN_CHUNKS)
+    return max(1, min(most, sm_count * blocks_per_sm // (B * H)))
 
 
 def _lib():
@@ -67,6 +102,21 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib_wg():
+    fn = build.load("ssd_scan").repro_ssd_scan_wg_fwd
+    if fn.argtypes is None:
+        # x, dt, A, B, C, h0, y, state, seg_state, seg_decay; dt_dtype, B, H,
+        # G, S, P, N, nseg; stream
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(x, dt, A, B_in, C_in, h0):
@@ -154,10 +204,11 @@ def ssd_scan_hmajor(x, dt, A, B_in, C_in, *, chunk=DEFAULT_CHUNK, h0=None):
     bfloat16; h0 (optional, [B,H,P,N] float32) is the initial state.  CPU
     tensors take the plain version with chunks of ``chunk`` rows.  CUDA
     tensors launch the kernel variant that ``k2_variant`` chooses on the
-    current stream (one launch, counted in ``ssd_scan_hmajor.launches`` and,
-    by variant, in ``.launches_by_variant``); the kernel tiles the sequence
-    in chunks of its own length (64 rows, so that the [Q,Q] tile fits in
-    shared memory) and ignores ``chunk``: the result depends on the chunk
+    current stream (one call, counted in ``ssd_scan_hmajor.launches`` and,
+    by variant, in ``.launches_by_variant``, whether it runs one CUDA kernel
+    or, "wg" over several segments, three); the kernels tile the sequence
+    in chunks of their own length (64 rows, so that the [Q,Q] tile fits in
+    shared memory) and ignore ``chunk``: the result depends on the chunk
     length only through float rounding.  Under autograd the launch goes
     through ``SSDScanFn``, whose backward takes chunks of ``chunk`` rows.
     """
@@ -240,20 +291,34 @@ class SSDScanFn(torch.autograd.Function):
                   for t, need in zip(ins, needs)), None)
 
 
-def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=TC_TF32):
-    """Launch ``variant`` ("tc" or "fma") of K2 on checked CUDA tensors, with
-    y in ``y_dtype``.  The serve path takes ``k2_variant``'s choice and y in
-    x's type; chip_smoke.py also runs the "fma" kernel on bf16 inputs, the
-    "tc" kernel with y in float32 (y before it is rounded to bf16) and with
-    ``tf32`` off (every product on bf16 operands) through here, to split the
-    tensor-core kernel's error by its source.  A variant or y type that
-    cannot take the call raises."""
-    if variant not in _VARIANT_CODES or (variant == "tc" and k2_variant(
-            x.dtype, x.shape[3], B_in.shape[3]) != "tc"):
+def _takes(variant, x_dtype, P, N):
+    """Whether K2's ``variant`` takes bf16 or f32 x at head dim P, d_state N."""
+    if variant == "wg":
+        return k2_variant(x_dtype, P, N) == "wg"
+    if variant == "tc":
+        return k2_variant(x_dtype, P, N) != "fma"
+    return variant == "fma"
+
+
+def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=TC_TF32, segments=None):
+    """Launch ``variant`` ("wg", "tc" or "fma") of K2 on checked CUDA
+    tensors, with y in ``y_dtype``.  The serve path takes ``k2_variant``'s
+    choice and y in x's type; chip_smoke.py also runs "tc" where "wg" serves
+    (the before-time on the same inputs), the "fma" kernel on bf16 inputs,
+    the "tc" kernel with y in float32 (y before it is rounded to bf16) and
+    with ``tf32`` off (every product on bf16 operands) through here, to
+    split the tensor-core kernel's error by its source, and "wg" with its
+    ``segments`` set (default: ``k2_segments``'s count for this card).  A
+    variant, y type or segment count that cannot take the call raises."""
+    if not _takes(variant, x.dtype, x.shape[3], B_in.shape[3]):
         raise ValueError(f"K2 variant {variant!r} does not take {x.dtype} at "
                          f"P={x.shape[3]}, N={B_in.shape[3]}")
     if y_dtype != x.dtype and not (variant == "tc" and y_dtype == torch.float32):
         raise ValueError(f"K2 {variant} does not write y in {y_dtype} from {x.dtype} x")
+    n_chunks = -(-x.shape[2] // WG_CHUNK)
+    if segments is not None and (variant != "wg" or not 1 <= segments <= n_chunks):
+        raise ValueError(f"K2 {variant} does not take {segments} segments of "
+                         f"{n_chunks} chunks")
     tf32 = tf32 and variant == "tc"
     if _wants_grad(x, dt, A, B_in, C_in, h0):
         raise RuntimeError("K2 launched on inputs that require grad would return outputs "
@@ -270,17 +335,34 @@ def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=TC_TF32):
                          f"N <= {MAX_D_STATE}, got P={P}, N={N}")
     if Bz > 65535:
         raise ValueError(f"K2 takes batch <= 65535, got {Bz}")
-    if variant == "tc" and any(t.data_ptr() % 16 for t in (x, B_in, C_in)):
-        raise ValueError("K2's tensor-core kernel wants x, B and C 16-byte aligned")
+    if variant != "fma" and any(t.data_ptr() % 16 for t in (x, B_in, C_in)):
+        raise ValueError("K2's tensor-core kernels want x, B and C 16-byte aligned")
     y = torch.empty(x.shape, dtype=y_dtype, device=x.device)
     state = torch.empty((Bz, H, P, N), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    h0_ptr = None if h0 is None else h0.data_ptr()
     with torch.cuda.device(x.device):
-        err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
-                     C_in.data_ptr(), None if h0 is None else h0.data_ptr(),
-                     y.data_ptr(), state.data_ptr(), _DTYPE_CODES[x.dtype],
-                     _DTYPE_CODES[y_dtype], _DTYPE_CODES[dt.dtype], _VARIANT_CODES[variant],
-                     int(tf32), Bz, H, G, S, P, N, stream)
+        if variant == "wg":
+            nseg = segments if segments is not None else k2_segments(
+                Bz, H, S, _sm_count(x.device), WG_BLOCKS_PER_SM[P])
+            # the segments' states, then (in place) their incoming states; and
+            # each segment's decay sum (none with one segment)
+            seg_state = seg_decay = None
+            if nseg > 1:
+                seg_state = torch.empty((Bz, H, nseg - 1, P, N), dtype=torch.float32,
+                                        device=x.device)
+                seg_decay = torch.empty((Bz, H, nseg - 1), dtype=torch.float32,
+                                        device=x.device)
+            err = _lib_wg()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
+                            C_in.data_ptr(), h0_ptr, y.data_ptr(), state.data_ptr(),
+                            None if seg_state is None else seg_state.data_ptr(),
+                            None if seg_decay is None else seg_decay.data_ptr(),
+                            _DTYPE_CODES[dt.dtype], Bz, H, G, S, P, N, nseg, stream)
+        else:
+            err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
+                         C_in.data_ptr(), h0_ptr, y.data_ptr(), state.data_ptr(),
+                         _DTYPE_CODES[x.dtype], _DTYPE_CODES[y_dtype], _DTYPE_CODES[dt.dtype],
+                         _VARIANT_CODES[variant], int(tf32), Bz, H, G, S, P, N, stream)
     if err != 0:
         raise RuntimeError(f"K2 SSD scan ({variant}) launch failed: CUDA error {err}")
     ssd_scan_hmajor.launches += 1
@@ -300,4 +382,4 @@ def occupancy(variant, P):
 
 
 ssd_scan_hmajor.launches = 0
-ssd_scan_hmajor.launches_by_variant = {"tc": 0, "fma": 0}
+ssd_scan_hmajor.launches_by_variant = {"wg": 0, "tc": 0, "fma": 0}

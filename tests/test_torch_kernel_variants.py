@@ -2,8 +2,9 @@
 
 bf16 calls that the tensor-core kernels can take go to them: K1 at head dim
 64 or 128 to its wgmma kernel ("wg"), at any other multiple of 16 to its
-mma.sync kernel ("tc"); K2 to "tc".  Every other call goes to the fp32
-CUDA-core kernels ("fma").  The choice is made in Python, so it is tested
+mma.sync kernel ("tc"); K2 at P and N of 64 or 128 to "wg" (split over the
+sequence in ``k2_segments`` segments), at the other multiples of 8 to "tc".
+Every other call goes to the fp32 CUDA-core kernels ("fma").  The choice is made in Python, so it is tested
 here without a card; the kernels themselves are tested on the card by
 tests/test_torch_kernels_card.py.
 """
@@ -35,8 +36,10 @@ def test_k1_variant(dtype, hd, variant):
 
 
 @pytest.mark.parametrize("dtype,P,N,variant", [
-    (BF16, 64, 128, "tc"),         # mamba2-1.3b
-    (BF16, 128, 128, "tc"),        # jamba's Mamba layers
+    (BF16, 64, 128, "wg"),         # mamba2-1.3b
+    (BF16, 128, 128, "wg"),        # jamba's Mamba layers
+    (BF16, 64, 64, "wg"),
+    (BF16, 96, 128, "tc"),         # wg takes P and N of 64 and 128 only
     (BF16, 16, 16, "tc"), (BF16, 32, 64, "tc"), (BF16, 8, 8, "tc"),
     (BF16, 24, 16, "tc"),
     (BF16, 20, 16, "fma"), (BF16, 64, 12, "fma"),   # rows not 16-byte multiples
@@ -54,7 +57,36 @@ def test_every_config_serves_bf16_on_the_tensor_cores():
             want = "wg" if cfg.head_dim in (64, 128) else "tc"     # gemma3's 256 on tc
             assert fa.k1_variant(BF16, cfg.head_dim) == want, arch
         if cfg.ssm is not None:
-            assert ks.k2_variant(BF16, cfg.ssm.head_dim, cfg.ssm.d_state) == "tc", arch
+            assert ks.k2_variant(BF16, cfg.ssm.head_dim, cfg.ssm.d_state) == "wg", arch
+    assert {a for a in ARCH_IDS if get_config(a).ssm is not None} == {
+        "mamba2-1.3b", "jamba-1.5-large-398b"}
+
+
+SM_COUNT = 132      # an H100 SXM
+
+
+@pytest.mark.parametrize("B,S,H,P,want", [
+    (1, 32768, 64, 64, 4),         # the mamba2-1.3b prefill_32k cell: 256 blocks
+    (2, 4096, 64, 64, 2),          # a mamba2-1.3b train microbatch: 256 blocks
+    (4, 1024, 64, 64, 1),          # the mamba2-1.3b serve prefill: 256 blocks
+    (4, 1024, 128, 128, 1),        # the jamba mixer: 512 blocks, one a SM
+    (4, 255, 64, 64, 1), (1, 64, 4, 64, 1), (1, 1, 2, 128, 1),   # S < 256
+    (1, 448, 2, 64, 1),            # 7 chunks: too short for two segments of 4
+    (1, 512, 2, 64, 2),            # 8 chunks: two segments of 4
+    (1, 100_000, 2, 64, 132),      # one wave of 264 slots
+])
+def test_k2_segments_rule(B, S, H, P, want):
+    """Whole chunks of at least 4 (one segment below 512 positions), and as
+    many segments as the block slots take in one wave."""
+    n = ks.k2_segments(B, H, S, SM_COUNT, ks.WG_BLOCKS_PER_SM[P])
+    assert n == want
+    chunks = -(-S // 64)
+    slots = SM_COUNT * ks.WG_BLOCKS_PER_SM[P]
+    assert B * H * n <= max(slots, B * H)                 # one wave
+    if n > 1:
+        assert chunks // n >= ks.WG_MIN_CHUNKS             # segment s: chunks [s nc / n, (s+1) nc / n)
+        assert B * H * (n + 1) > slots or chunks // (n + 1) < ks.WG_MIN_CHUNKS   # the most that fit
+    assert ks.k2_segments(B, H, S, SM_COUNT, ks.WG_BLOCKS_PER_SM[P]) == n   # a pure function
 
 
 _K1_KW = dict(causal=True, window=0, kv_valid=None, softmax_scale=None)
@@ -107,11 +139,30 @@ def test_k2_refuses_a_variant_that_cannot_take_the_call():
         ks._launch(x, dt, A, Bi, Bi, None, "fma", BF16)
     with pytest.raises(ValueError, match="device"):                 # valid, on the CPU
         ks._launch(xb, dt, A, Bb, Bb, None, "tc", F32)
+    with pytest.raises(ValueError, match="segments"):               # tc takes no segments
+        ks._launch(xb, dt, A, Bb, Bb, None, "tc", BF16, segments=1)
+    for dtype, P, N in [(F32, 64, 128), (BF16, 16, 16), (BF16, 96, 128), (BF16, 64, 32)]:
+        xw = torch.zeros(1, 2, 8, P, dtype=dtype)                   # wg: bf16 at P, N 64 / 128
+        Bw = torch.zeros(1, 1, 8, N, dtype=dtype)
+        with pytest.raises(ValueError, match="variant"):
+            ks._launch(xw, dt, A, Bw, Bw, None, "wg", dtype)
+    xw = torch.zeros(1, 2, 300, 64, dtype=BF16)                     # 5 chunks of 64
+    dw, Bw = torch.zeros(1, 2, 300), torch.zeros(1, 1, 300, 128, dtype=BF16)
+    with pytest.raises(ValueError, match="y in"):
+        ks._launch(xw, dw, A, Bw, Bw, None, "wg", F32)
+    for segments in (0, 6):
+        with pytest.raises(ValueError, match="segments"):
+            ks._launch(xw, dw, A, Bw, Bw, None, "wg", BF16, segments=segments)
+    for segments in (None, 1, 5):
+        with pytest.raises(ValueError, match="device"):             # valid, on the CPU
+            ks._launch(xw, dw, A, Bw, Bw, None, "wg", BF16, segments=segments)
+    with pytest.raises(ValueError, match="device"):                 # tc where wg serves
+        ks._launch(xw, dw, A, Bw, Bw, None, "tc", BF16)
 
 
 def test_cpu_calls_count_no_variant():
     fa.flash_attention_hmajor.launches_by_variant.update(wg=0, tc=0, fma=0)
-    ks.ssd_scan_hmajor.launches_by_variant.update(tc=0, fma=0)
+    ks.ssd_scan_hmajor.launches_by_variant.update(wg=0, tc=0, fma=0)
     fa.flash_attention_hmajor(torch.zeros(1, 2, 8, 16, dtype=BF16),
                               torch.zeros(1, 2, 8, 16, dtype=BF16),
                               torch.zeros(1, 2, 8, 16, dtype=BF16))
@@ -120,8 +171,11 @@ def test_cpu_calls_count_no_variant():
     ks.ssd_scan_hmajor(torch.zeros(1, 2, 8, 16, dtype=BF16), torch.zeros(1, 2, 8),
                        -torch.ones(2), torch.zeros(1, 1, 8, 16, dtype=BF16),
                        torch.zeros(1, 1, 8, 16, dtype=BF16), chunk=4)
+    ks.ssd_scan_hmajor(torch.zeros(1, 2, 8, 64, dtype=BF16), torch.zeros(1, 2, 8),   # wg
+                       -torch.ones(2), torch.zeros(1, 1, 8, 128, dtype=BF16),
+                       torch.zeros(1, 1, 8, 128, dtype=BF16), chunk=4)
     assert fa.flash_attention_hmajor.launches_by_variant == {"wg": 0, "tc": 0, "fma": 0}
-    assert ks.ssd_scan_hmajor.launches_by_variant == {"tc": 0, "fma": 0}
+    assert ks.ssd_scan_hmajor.launches_by_variant == {"wg": 0, "tc": 0, "fma": 0}
 
 
 def _fake_csrc(tmp_path, monkeypatch):

@@ -2,9 +2,11 @@
 
 Every f32 case has a bf16 twin: bf16 runs a tensor-core variant wherever
 ``k1_variant`` / ``k2_variant`` choose it (K1: "wg" at hd 64 and 128, "tc"
-at the other multiples of 16; hd 72 stays on the CUDA-core "fma" kernel),
-and each call is counted under its variant.  Where K1 takes "wg", its "tc"
-kernel is held on the same inputs too.
+at the other multiples of 16; hd 72 stays on the CUDA-core "fma" kernel;
+K2: "wg" at P and N of 64 and 128, "tc" at the other bf16 shapes), and each
+call is counted under its variant.  Where K1 takes "wg", its "tc" kernel is
+held on the same inputs too; where K2 takes "wg", it is held again at
+several segment counts and twice for the same bits.
 
 This file needs no jax, so that it also runs on a machine with a CUDA card
 and no jax:
@@ -88,7 +90,7 @@ K2_CASES = [   # (B, S, H, G, P, N), chunk, h0: each in f32 (1e-4) and bf16 x/B/
     ((1, 128, 2, 1, 64, 128), 32, False),
     ((1, 96, 8, 4, 16, 16), 48, False),
     ((2, 100, 4, 2, 32, 64), 32, True),
-    ((1, 200, 2, 1, 128, 64), 64, True),       # P = 128: the 8-warp tensor-core kernel
+    ((1, 200, 2, 1, 128, 64), 64, True),       # P = 128: two consumer warpgroups ("wg")
 ]
 K2_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
@@ -100,6 +102,10 @@ K2_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 ] + [
     ((1, 64, 2, 1, 32, 16), 16, "bfloat16", "bfloat16", False, 5e-2),
     ((4, 1024, 64, 1, 64, 128), 256, "bfloat16", "float32", False, 5e-2),   # mamba2 serve
+    # "wg": ragged S, G > 1, h0, dt in bf16, P and N of 64 and 128
+    ((2, 333, 4, 2, 64, 64), 64, "bfloat16", "float32", True, 5e-2),
+    ((1, 300, 4, 2, 128, 128), 64, "bfloat16", "bfloat16", False, 5e-2),
+    ((2, 517, 4, 1, 128, 64), 64, "bfloat16", "float32", True, 5e-2),
 ])
 def test_k2_kernel_matches_plain_on_card(shape, chunk, dtype, dt_dtype, with_h0, tol):
     if not torch.cuda.is_available():
@@ -115,7 +121,8 @@ def test_k2_kernel_matches_plain_on_card(shape, chunk, dtype, dt_dtype, with_h0,
     Ci = (mk(B, G, S, N) * 0.5).to(x.dtype)
     h0 = mk(B, H, P, N) * 0.5 if with_h0 else None
     variant = ks.k2_variant(x.dtype, P, N)
-    assert variant == ("tc" if dtype == "bfloat16" else "fma")
+    wg = P in (64, 128) and N in (64, 128)
+    assert variant == (("wg" if wg else "tc") if dtype == "bfloat16" else "fma")
     before = ks.ssd_scan_hmajor.launches
     by_variant = ks.ssd_scan_hmajor.launches_by_variant[variant]
     y, st = ks.ssd_scan_hmajor(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)
@@ -127,9 +134,18 @@ def test_k2_kernel_matches_plain_on_card(shape, chunk, dtype, dt_dtype, with_h0,
     refs = [ks.ssd_scan_hmajor_plain(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)]
     if dtype == "float32":
         refs.append(ssd_ref(x, dt, A, Bi, Ci, h0=h0))
-    for yr, sr in refs:
-        torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
-        torch.testing.assert_close(st, sr, atol=tol, rtol=tol)
+    runs = [(y, st)]
+    if variant == "wg":        # every segment count the call can take up to 5, and the last
+        chunks = -(-S // 64)
+        runs += [ks._launch(x, dt, A, Bi, Ci, h0, "wg", torch.bfloat16, segments=n)
+                 for n in sorted(set(range(1, min(chunks, 5) + 1)) | {chunks})]
+        again = ks.ssd_scan_hmajor(x, dt, A, Bi, Ci, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        assert torch.equal(again[0], y) and torch.equal(again[1], st)     # no atomics
+    for y_run, st_run in runs:
+        for yr, sr in refs:
+            torch.testing.assert_close(y_run.float(), yr.float(), atol=tol, rtol=tol)
+            torch.testing.assert_close(st_run, sr, atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -150,7 +166,8 @@ def test_k2_raises_on_what_it_does_not_take():
 @pytest.mark.parametrize("shape", [(1, 200, 2, 1, 128, 64), (2, 300, 4, 1, 64, 128)])
 def test_k2_tc_f32_y_rounds_to_its_bf16_y(shape):
     """The "tc" kernel writing y in f32 (y before output rounding) does the
-    same arithmetic as the one writing bf16: rounding it gives the bf16 y."""
+    same arithmetic as the one writing bf16: rounding it gives the bf16 y.
+    (At these shapes bf16 calls take "wg", so "tc" is launched by name.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K2 is CUDA C++ with no CPU mode")
     B, S, H, G, P, N = shape
@@ -159,7 +176,7 @@ def test_k2_tc_f32_y_rounds_to_its_bf16_y(shape):
     x = mk(B, H, S, P).to(torch.bfloat16)
     dt, A = F.softplus(mk(B, H, S) - 4.6), -torch.ones(H, device="cuda")
     Bi, Ci = ((mk(B, G, S, N) * 0.5).to(torch.bfloat16) for _ in range(2))
-    y, st = ks.ssd_scan_hmajor(x, dt, A, Bi, Ci)
+    y, st = ks._launch(x, dt, A, Bi, Ci, None, "tc", torch.bfloat16)
     y32, st32 = ks._launch(x, dt, A, Bi, Ci, None, "tc", torch.float32)
     torch.cuda.synchronize()
     assert y32.dtype == torch.float32
@@ -177,6 +194,9 @@ def test_tc_kernels_fit_two_blocks_per_sm_at_the_serve_head_dims():
     for hd in (64, 128):                           # wg: one block of 3 warpgroups per SM
         smem, blocks = fa.occupancy("wg", hd)
         assert smem > 0 and blocks == 1
+    for P in (64, 128):                            # K2 wg: what k2_segments counts on
+        smem, blocks = ks.occupancy("wg", P)
+        assert smem > 0 and blocks == ks.WG_BLOCKS_PER_SM[P]
     for query, dim in [(fa.occupancy, 256), (ks.occupancy, 128), (fa.occupancy, 128),
                        (ks.occupancy, 64)]:
         for variant in ("tc", "fma"):

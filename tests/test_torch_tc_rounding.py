@@ -17,6 +17,13 @@ operand:
   and the state as tf32 operands instead (``operand=_tf32``): on bf16
   operands the serve shape's y used more than half of the tolerance before
   it is stored (PERF.md).
+* K2 "wg" (``k2_wg_model``): the sequence cut into segments of whole
+  64-row chunks, the segments' states from zero, a pass that carries the
+  state across them, then each segment's outputs from its incoming state;
+  att, the state operand and x .* w enter every product as hi + lo bf16
+  pairs (``_split``, about 16 significant bits), so the split's algebra is
+  exact in f32 (``operand`` = identity) and its rounding far under the
+  tolerance.
 
 The models below follow those steps in fp32 on the CPU and are compared,
 on numpy-seeded bf16 inputs, with ``repro.kernels.ref`` and with the Pallas
@@ -141,6 +148,68 @@ def k2_tc_model(x, dt, A, B_in, C_in, operand=_bf16):
     return torch.cat(ys, dim=2)[:, :, :S], h
 
 
+def _split(a):
+    """a as the hi + lo bf16 pair the "wg" kernel feeds the tensor cores
+    (``split_bf16``): hi = bf16(a), lo = bf16(a - hi), summed in f32."""
+    hi = _bf16(a)
+    return hi + _bf16(a - hi)
+
+
+def _k2_wg_chunks(xf, dtf, A, Bf, Cf, h, c_lo, c_hi, operand, outputs, att_operand):
+    """The "wg" chunk recurrence over chunks [c_lo, c_hi) from state h, on
+    inputs padded to whole chunks (B, C per head): (the chunks' y, or [] for
+    the states kernel, the state after them, their decay sum [B,H,1])."""
+    a = A[None, :, None]
+    tri = torch.tril(torch.ones((CHUNK, CHUNK), dtype=torch.bool))
+    ys, decay = [], 0.0
+    for c in range(c_lo, c_hi):
+        rows = slice(c * CHUNK, (c + 1) * CHUNK)
+        xc, dc, Bc, Cc = xf[:, :, rows], dtf[:, :, rows], Bf[:, :, rows], Cf[:, :, rows]
+        cum = torch.cumsum(dc * a, dim=-1)
+        total = cum[..., -1:]
+        if outputs:
+            cb = torch.einsum("bhin,bhjn->bhij", Cc, Bc)
+            diff = torch.where(tri, cum[..., :, None] - cum[..., None, :], torch.tensor(0.0))
+            att = torch.where(tri, cb * torch.exp(diff) * dc[..., None, :], torch.tensor(0.0))
+            y = torch.exp(cum)[..., None] * torch.einsum("bhqn,bhpn->bhqp", Cc, operand(h))
+            ys.append(y + torch.einsum("bhij,bhjp->bhip", att_operand(att), xc))
+        w = torch.exp(total - cum) * dc
+        h = h * torch.exp(total)[..., None] + torch.einsum(
+            "bhjp,bhjn->bhpn", operand(xc * w[..., None]), Bc)
+        decay = decay + total
+    return ys, h, decay
+
+
+def k2_wg_model(x, dt, A, B_in, C_in, h0=None, segments=1, operand=_split, att_operand=None):
+    """x [B,H,S,P], dt [B,H,S], A [H], B/C [B,G,S,N] -> (y, state), f32, as
+    the "wg" kernel computes them over ``segments`` segments (segment s:
+    chunks [s nc / segments, (s + 1) nc / segments)).  ``operand`` rounds
+    att, the state operand and x .* w; ``att_operand``, if given, att
+    instead."""
+    att_operand = att_operand or operand
+    Bz, H, S, P = x.shape
+    G, N = B_in.shape[1], B_in.shape[3]
+    pad = (-S) % CHUNK
+    xf = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt, (0, pad))
+    Bf, Cf = (torch.nn.functional.pad(t.repeat_interleave(H // G, dim=1), (0, 0, 0, pad))
+              for t in (B_in, C_in))
+    nc = (S + pad) // CHUNK
+    bounds = [s * nc // segments for s in range(segments + 1)]
+    zero = torch.zeros((Bz, H, P, N))
+    h_in = [zero if h0 is None else h0]
+    for s in range(segments - 1):          # the states kernel, then the pass
+        _, seg_state, decay = _k2_wg_chunks(xf, dtf, A, Bf, Cf, zero, bounds[s], bounds[s + 1],
+                                            operand, False, att_operand)
+        h_in.append(torch.exp(decay)[..., None] * h_in[-1] + seg_state)
+    ys = []
+    for s in range(segments):              # the outputs kernel
+        y, h, _ = _k2_wg_chunks(xf, dtf, A, Bf, Cf, h_in[s], bounds[s], bounds[s + 1], operand,
+                                True, att_operand)
+        ys += y
+    return torch.cat(ys, dim=2)[:, :, :S], h
+
+
 def _qkv(B, Sq, Skv, H, K, hd, seed, std=1.0):
     """numpy-seeded inputs, rounded to bf16 (returned as f32 numpy)."""
     r = np.random.default_rng(seed)
@@ -205,15 +274,19 @@ def test_k1_wg_rounding_within_tolerance_of_pallas_interpret(name, shape, kw, st
                                atol=3e-2, rtol=3e-2)
 
 
-def _ssd_inputs(B, S, H, G, P, N, seed, serve):
+def _ssd_inputs(B, S, H, G, P, N, seed, serve, train=False):
     """numpy-seeded K2 inputs: x, B, C rounded to bf16; dt and A in f32.
     ``serve`` draws dt and A as the mamba2 serve path has them (small dt,
-    A = -1); otherwise as tests/test_kernels.py does."""
+    A = -1); ``train`` as tests/test_kernels.py does but with A = -1.7, so
+    that a 64-row chunk decays by ~87, as the largest chunk decay of a
+    mamba2-1.3b train microbatch (PERF.md); otherwise as
+    tests/test_kernels.py does."""
     r = np.random.default_rng(seed)
     x = r.standard_normal((B, H, S, P)).astype(np.float32)
     z = r.standard_normal((B, H, S))
     dt = np.logaddexp(z - (4.6 if serve else 0.0), 0.0).astype(np.float32)
-    A = (-np.ones(H) if serve else -np.exp(r.standard_normal(H) * 0.5)).astype(np.float32)
+    A = (-np.ones(H) if serve else -np.full(H, 1.7) if train
+         else -np.exp(r.standard_normal(H) * 0.5)).astype(np.float32)
     Bi = (r.standard_normal((B, G, S, N)) * 0.5).astype(np.float32)
     Ci = (r.standard_normal((B, G, S, N)) * 0.5).astype(np.float32)
     x, Bi, Ci = (_bf16(torch.from_numpy(a)).numpy() for a in (x, Bi, Ci))
@@ -257,7 +330,7 @@ def test_k2_tc_rounding_within_tolerance_of_pallas_interpret(name, shape, serve)
 
 
 @pytest.mark.parametrize("kernel", ["k1_peaked", "k2_serve_regime", "k2_serve_regime_tf32",
-                                    "k1_wg_peaked"])
+                                    "k1_wg_peaked", "k2_wg_serve_regime"])
 def test_tc_rounding_uses_under_half_the_tolerance(kernel):
     """Before y is stored in bf16, the operand rounding alone uses less than
     half of the tolerance (the margin the design asks for), measured
@@ -270,8 +343,11 @@ def test_tc_rounding_uses_under_half_the_tolerance(kernel):
         tol = 3e-2
     else:
         arrays = _ssd_inputs(1, 1024, 4, 1, 64, 128, seed=6, serve=True)
-        y, _ = k2_tc_model(*(torch.from_numpy(a) for a in arrays),
-                           operand=_tf32 if kernel.endswith("tf32") else _bf16)
+        if "wg" in kernel:      # one segment, as k2_segments gives the serve shape
+            y, _ = k2_wg_model(*(torch.from_numpy(a) for a in arrays), segments=1)
+        else:
+            y, _ = k2_tc_model(*(torch.from_numpy(a) for a in arrays),
+                               operand=_tf32 if kernel.endswith("tf32") else _bf16)
         got = y.numpy()
         ref = np.asarray(jax.jit(ssd_ref)(*(jnp.asarray(a) for a in arrays))[0])
         tol = 5e-2
@@ -291,3 +367,97 @@ def test_k2_tf32_operands_cut_the_rounding_error():
         np.testing.assert_allclose(y.numpy(), ref, atol=5e-2, rtol=5e-2)
         err[name] = np.sqrt(np.mean((y.numpy() - ref) ** 2))
     assert err["tf32"] < 0.75 * err["bf16"], err
+
+
+K2_WG_CASES = [   # name, (B, S, H, G, P, N), regime, h0: ragged S, G > 1, P and N 64 / 128
+    ("ragged_grouped_h0", (2, 333, 4, 2, 64, 64), "test", True),
+    ("serve_regime", (1, 512, 4, 1, 64, 128), "serve", False),
+    ("train_regime_h0", (1, 400, 2, 1, 128, 128), "train", True),
+    ("ragged_grouped_p128_n64", (1, 300, 4, 2, 128, 64), "test", False),
+]
+WG_SEGMENTS = (1, 2, 3, 5)
+
+
+def _wg_case(name, shape, regime, with_h0):
+    B, S, H, G, P, N = shape
+    arrays = _ssd_inputs(*shape, seed=sum(map(ord, name)), serve=regime == "serve",
+                         train=regime == "train")
+    h0 = (np.random.default_rng(len(name)).standard_normal((B, H, P, N)) * 0.5).astype(
+        np.float32) if with_h0 else None
+    if regime == "train":      # the chunks decay as a train microbatch's largest
+        dt, A = arrays[1], arrays[2]
+        decay = (dt * -A[None, :, None])[:, :, :S // CHUNK * CHUNK].reshape(
+            B, H, -1, CHUNK).sum(-1)
+        assert decay.max() > 80
+    return arrays, h0
+
+
+def _wg_model(arrays, h0, **kw):
+    return k2_wg_model(*(torch.from_numpy(a) for a in arrays),
+                       h0=None if h0 is None else torch.from_numpy(h0), **kw)
+
+
+@pytest.mark.parametrize("segments", WG_SEGMENTS)
+@pytest.mark.parametrize("name,shape,regime,with_h0", K2_WG_CASES,
+                         ids=[c[0] for c in K2_WG_CASES])
+def test_k2_wg_rounding_within_tolerance_of_jax_ref(name, shape, regime, with_h0, segments):
+    arrays, h0 = _wg_case(name, shape, regime, with_h0)
+    y, st = _wg_model(arrays, h0, segments=segments)
+    yr, sr = ssd_ref(*_jax_args(*arrays), h0=None if h0 is None else jnp.asarray(h0))
+    np.testing.assert_allclose(_bf16(y).numpy(), np.asarray(yr, np.float32),
+                               atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sr), atol=5e-2, rtol=5e-2)
+    assert np.isfinite(y.numpy()).all() and np.isfinite(st.numpy()).all()
+
+
+@pytest.mark.parametrize("segments", WG_SEGMENTS)
+@pytest.mark.parametrize("name,shape,regime,with_h0", K2_WG_CASES,
+                         ids=[c[0] for c in K2_WG_CASES])
+def test_k2_wg_split_is_exact_at_f32_operands(name, shape, regime, with_h0, segments):
+    """With no operand rounding the three-phase split is the same function
+    as the step-by-step recurrence: within 1e-4 of ``ssd_ref`` on the same
+    (bf16-valued) f32 inputs."""
+    arrays, h0 = _wg_case(name, shape, regime, with_h0)
+    y, st = _wg_model(arrays, h0, segments=segments, operand=lambda a: a)
+    yr, sr = ssd_ref(*(jnp.asarray(a) for a in arrays),
+                     h0=None if h0 is None else jnp.asarray(h0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sr), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,shape,regime,segments", [
+    ("serve_regime", (1, 512, 4, 1, 64, 128), "serve", 3),
+    ("ragged_grouped_p128_n64", (1, 300, 4, 2, 128, 64), "test", 2),
+], ids=["serve_regime", "ragged_grouped_p128_n64"])
+def test_k2_wg_rounding_within_tolerance_of_pallas_interpret(name, shape, regime, segments):
+    arrays, _ = _wg_case(name, shape, regime, False)
+    y, st = _wg_model(arrays, None, segments=segments)
+    yr, sr = pallas_ssd(*_jax_args(*arrays), chunk=64, interpret=True)
+    np.testing.assert_allclose(_bf16(y).numpy(), np.asarray(yr, np.float32),
+                               atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sr), atol=5e-2, rtol=5e-2)
+
+
+def test_k2_wg_split_operands_cut_the_rounding_error():
+    """hi + lo operands err far less than the "tc" kernel's (tf32 att and
+    state, bf16 B .* w) against the exact f32 oracle, at the serve regime."""
+    arrays = _ssd_inputs(1, 512, 4, 1, 64, 128, seed=11, serve=True)
+    ref = np.asarray(jax.jit(ssd_ref)(*(jnp.asarray(a) for a in arrays))[0])
+    tc, _ = k2_tc_model(*(torch.from_numpy(a) for a in arrays), operand=_tf32)
+    wg, _ = k2_wg_model(*(torch.from_numpy(a) for a in arrays), segments=2)
+    rms = {k: np.sqrt(np.mean((v.numpy() - ref) ** 2)) for k, v in (("tc", tc), ("wg", wg))}
+    assert rms["wg"] < 0.1 * rms["tc"], rms
+
+
+def test_k2_wg_att_needs_its_lo_half_at_the_train_regime():
+    """Where chunks decay by ~87 (a train microbatch's largest), the hi + lo
+    operands use under 1% of the tolerance against the exact f32 oracle,
+    while att alone rounded to bf16 would use over a quarter of it: why
+    "wg" splits att as well as the state and x .* w."""
+    arrays, _ = _wg_case("train_regime_h0", (1, 1024, 8, 1, 64, 128), "train", False)
+    ref = np.asarray(jax.jit(ssd_ref)(*(jnp.asarray(a) for a in arrays))[0])
+    share = {}
+    for name, att in (("split", None), ("bf16", _bf16)):
+        y, _ = _wg_model(arrays, None, segments=2, att_operand=att)
+        share[name] = (np.abs(y.numpy() - ref) / (5e-2 + 5e-2 * np.abs(ref))).max()
+    assert share["split"] < 0.01 and share["bf16"] > 0.25, share
