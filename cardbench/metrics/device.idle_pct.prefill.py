@@ -1,0 +1,10 @@
+"""Host seconds inside the traced prefill ranges in which no device
+operation ran, as a share of their length (%)."""
+
+
+def read(run):
+    rs = run.trace.of("prefill") if run.trace else []
+    host = sum(r.host_s for r in rs)
+    if host <= 0 or not any(r.device_s > 0 for r in rs):
+        return None
+    return 100.0 * sum(r.idle_s for r in rs) / host
