@@ -92,12 +92,13 @@ _NO_TRAFFIC = {_aten.empty.memory_format, _aten.empty_strided.default,
 
 def _open_scopes() -> tuple:
     """The scopes of the operation being dispatched: those open in this
-    thread, or, in the backward, those of the autograd node running."""
+    thread, or, in the backward when no traffic tag is open in this thread
+    (a span such as ``decode`` may be), those of the autograd node running."""
     scopes = current_scopes()
-    if scopes or torch.is_grad_enabled():
+    if torch.is_grad_enabled() or any(t in TRAFFIC_TAGS for t in scopes):
         return scopes
     node = torch._C._current_autograd_node()
-    return () if node is None else node.metadata.get("scopes", ())
+    return scopes if node is None else node.metadata.get("scopes", ())
 
 
 def _current_tag() -> Optional[str]:

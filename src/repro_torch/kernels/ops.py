@@ -2,9 +2,12 @@
 
 The wrappers accept the model's [B, S, H, hd] layout and convert to the
 kernels' head-major layout and back, as ``repro.kernels.ops`` does.
+K1's call is the "k1" span (``core.scope``), which counts the bytes of
+its layout copies (``copy_bytes``).
 """
 from __future__ import annotations
 
+from repro_torch.core.scope import named_scope
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -12,12 +15,19 @@ from repro_torch.kernels import ssd_scan as _ssd
 def flash_attention(q, k, v, *, causal=True, window=None, softmax_scale=None):
     """q [B,Sq,H,hd]; k,v [B,Skv,K,hd] -> [B,Sq,H,hd]."""
     w = 0 if window is None else int(window)
-    qh = q.transpose(1, 2).contiguous()
-    kh = k.transpose(1, 2).contiguous()
-    vh = v.transpose(1, 2).contiguous()
-    out = _fa.flash_attention_hmajor(qh, kh, vh, causal=causal, window=w,
-                                     softmax_scale=softmax_scale)
-    return out.transpose(1, 2)
+    with named_scope("k1") as sp:
+        views = [t.transpose(1, 2) for t in (q, k, v)]
+        if sp.recording:
+            sp.note(copy_bytes=copy_bytes(*views))
+        qh, kh, vh = (t.contiguous() for t in views)
+        out = _fa.flash_attention_hmajor(qh, kh, vh, causal=causal, window=w,
+                                         softmax_scale=softmax_scale)
+        return out.transpose(1, 2)
+
+
+def copy_bytes(*views) -> int:
+    """Bytes that ``.contiguous()`` reads and writes to lay ``views`` out."""
+    return sum(2 * t.numel() * t.element_size() for t in views if not t.is_contiguous())
 
 
 def ssd_scan(x, dt, A, B_in, C_in, *, chunk=_ssd.DEFAULT_CHUNK):

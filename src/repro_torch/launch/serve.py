@@ -17,11 +17,25 @@ The enc-dec family gets seeded frame embeddings [B, source_len, D] * 0.02
 and the vlm family a seeded image prefix [B, num_image_tokens, D] * 0.02,
 as ``repro.launch.serve`` draws them.  The decode steps use the plain path, as in
 the JAX package.  ``run(cfg=...)`` takes a config whose depth was cut.
+``serve_batch`` is the serve loop of one batch, which ``run`` calls.
+
+``--trace PATH`` runs the batch under ``torch.profiler`` (the CPU, and CUDA
+on the card), writes the profiler's Chrome export to PATH and the program's
+spans (``core.scope``: tag, ids, times, attributes such as bytes copied) to
+PATH.spans.jsonl, and prints a table by span tag, for the whole batch and
+for one decode step: count, host ms in all and less the spans inside
+("self"), kernel launches, device idle ms, each put down to the innermost
+span open at that moment, and GiB counted by the spans' byte attributes:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --batch 4 --prompt-len 16384 --gen 16 --trace build/mamba2.json
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import time
 from dataclasses import dataclass
 
@@ -30,6 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import get_config
+from repro_torch.core import scope
+from repro_torch.core.scope import named_scope
 from repro_torch.models.lm import LM, resolve_device
 
 
@@ -57,6 +73,8 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--attention-impl", default="flash",
                     choices=["auto", "dot", "chunked", "flash"])
+    ap.add_argument("--trace", metavar="PATH",
+                    help="profile the batch: the Chrome export to PATH, the spans beside it")
     return ap.parse_args(argv)
 
 
@@ -68,8 +86,12 @@ def grow_cache(cfg, cache, max_len: int):
     ``attn`` and keeps ``ssm`` and ``conv``, which have no sequence axis,
     as the SSM family does."""
     def grow(kv):
-        return {name: F.pad(x, [0, 0] * (x.dim() - 3) + [0, max_len - x.shape[2]])
-                for name, x in kv.items()}
+        with named_scope("grow_cache") as sp:
+            out = {name: F.pad(x, [0, 0] * (x.dim() - 3) + [0, max_len - x.shape[2]])
+                   for name, x in kv.items()}
+            if sp.recording:    # read and written
+                sp.note(bytes=sum(x.nbytes + out[name].nbytes for name, x in kv.items()))
+            return out
 
     if cfg.family == "ssm":
         return cache
@@ -83,6 +105,92 @@ def grow_cache(cfg, cache, max_len: int):
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _sample(logits, temperature, generator):
+    """The next token [B, 1], on the device and copied to the host: the
+    argmax at temperature 0, else drawn from the tempered softmax."""
+    with named_scope("sample"):
+        if temperature > 0:
+            probs = torch.softmax(logits[:, -1].float() / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator)
+        else:
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        return tok, tok.cpu()
+
+
+def serve_batch(lm, prompts, gen, *, kv_dtype="bfloat16", temperature=0.0, generator=None,
+                inputs=None, on_token=None):
+    """One batch: prefill ``prompts`` [B, S] (with ``inputs``, the enc-dec
+    family's ``enc_embeds`` or the vlm family's ``embeds_prefix``), grow the
+    cache, decode.  Of the ``gen`` tokens the first is the prefill's argmax,
+    the rest are drawn at ``temperature`` with ``generator``.  Each token is
+    copied to the host as it is made and passed to ``on_token(i, tok)``
+    (tok [B, 1] on the host).  Returns (tokens [B, gen] on the host, the
+    prefill's logits, prefill seconds with the cache grown, decode seconds)."""
+    cfg, device = lm.cfg, lm.device
+    B, S = prompts.shape
+    n_img = cfg.num_image_tokens
+    host = []
+
+    def emit(tok_host):
+        host.append(tok_host)
+        if on_token is not None:
+            on_token(len(host) - 1, tok_host)
+
+    with torch.inference_mode(), named_scope("serve.batch", batch=B, prompt=S, gen=gen):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = lm.forward(prompts, mode="prefill", kv_dtype=kv_dtype, **(inputs or {}))
+        cache = grow_cache(cfg, out["cache"], S + gen + n_img)
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+
+        tok, tok_host = _sample(out["logits"], 0.0, None)
+        emit(tok_host)
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            logits, cache = lm.decode(cache, tok, S + n_img + i)
+            tok, tok_host = _sample(logits, temperature, generator)
+            emit(tok_host)
+        t_decode = time.perf_counter() - t0
+    return torch.cat(host, dim=1).numpy(), out["logits"], t_prefill, t_decode
+
+
+@contextlib.contextmanager
+def _profiled(path, device: torch.device):
+    """Profile the block; write the Chrome export to ``path`` and the spans to
+    ``path``.spans.jsonl, and print the spans' table (``scope.attribute``)."""
+    from torch.profiler import ProfilerActivity, profile
+    scope.clear()
+    with profile(activities=[ProfilerActivity.CPU]
+                 + [ProfilerActivity.CUDA] * (device.type == "cuda")) as prof:
+        yield
+    prof.export_chrome_trace(path)
+    spans = scope.spans()
+    with open(f"{path}.spans.jsonl", "w") as f:
+        for s in spans:
+            f.write(json.dumps(s._asdict()) + "\n")
+    events = prof.profiler.kineto_results.events()
+    steps = scope.subtree(spans, "decode")
+    n = sum(s.tag == "decode" for s in spans)
+    print(f"[serve] trace: {path}; {len(spans)} spans ({scope.dropped()} dropped)")
+    print(_table("the batch", scope.attribute(spans, events), 1))
+    if n:
+        rows = scope.attribute(steps, events)
+        rows.pop("(none)", None)          # the time between the steps
+        print(_table(f"one decode step (mean of {n})", rows, n))
+
+
+def _table(title, rows, per):
+    """The spans' table, ``per`` steps to a row's numbers, largest self ms first."""
+    lines = [f"[serve] spans, {title}: tag, count, host ms, self ms, launches, "
+             "device idle ms, GiB"]
+    for tag, r in sorted(rows.items(), key=lambda kv: -kv[1]["self_ms"]):
+        lines.append(f"  {tag:<16}{r['count'] / per:>9.1f}{r['host_ms'] / per:>11.3f}"
+                     f"{r['self_ms'] / per:>11.3f}{r['launches'] / per:>10.1f}"
+                     f"{r['idle_ms'] / per:>11.3f}{r['gib'] / per:>10.3f}")
+    return "\n".join(lines)
 
 
 def _config(args, cfg=None):
@@ -112,7 +220,6 @@ def run(argv=None, *, cfg=None) -> ServeResult:
     lm = LM(cfg, device=device, seed=args.seed)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     B, S = args.batch, args.prompt_len
-    max_len = S + args.gen
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
     kw = {}
     if cfg.encoder is not None:
@@ -121,30 +228,11 @@ def run(argv=None, *, cfg=None) -> ServeResult:
     if cfg.num_image_tokens:
         kw["embeds_prefix"] = torch.randn((B, cfg.num_image_tokens, cfg.d_model),
                                           generator=gen, device=device) * 0.02
-    n_img = cfg.num_image_tokens
-
-    with torch.inference_mode():
-        _sync(device)
-        t0 = time.perf_counter()
-        out = lm.forward(prompts, mode="prefill", kv_dtype=args.kv_dtype, **kw)
-        cache = grow_cache(cfg, out["cache"], max_len + n_img)
-        _sync(device)
-        t_prefill = time.perf_counter() - t0
-
-        tok = torch.argmax(out["logits"][:, -1], dim=-1)[:, None]
-        generated = [tok]
-        t0 = time.perf_counter()
-        for i in range(args.gen - 1):
-            logits, cache = lm.decode(cache, tok, S + n_img + i)
-            if args.temperature > 0:
-                probs = torch.softmax(logits[:, -1].float() / args.temperature, dim=-1)
-                tok = torch.multinomial(probs, 1, generator=gen)
-            else:
-                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            generated.append(tok)
-        toks = torch.cat(generated, dim=1).cpu().numpy()
-        t_decode = time.perf_counter() - t0
-    return ServeResult(tokens=toks, prompts=prompts, prefill_logits=out["logits"],
+    with _profiled(args.trace, device) if args.trace else contextlib.nullcontext():
+        toks, logits, t_prefill, t_decode = serve_batch(
+            lm, prompts, args.gen, kv_dtype=args.kv_dtype, temperature=args.temperature,
+            generator=gen, inputs=kw)
+    return ServeResult(tokens=toks, prompts=prompts, prefill_logits=logits,
                        prefill_s=t_prefill, decode_s=t_decode, lm=lm, inputs=kw)
 
 

@@ -14,7 +14,8 @@ be int8 with per-(b,s,k) scales (quantized decode cache).  Score products
 run in float32, as the JAX package's ``preferred_element_type`` asks.
 The dot and chunked paths run inside the "attention_core" scope
 (``core.scope.named_scope``), as JAX's run in its named scope: the
-account sums their traffic by that tag.
+account sums their traffic by that tag.  As a span it counts
+``cast_bytes``: what the float32 casts of k and v read and write.
 """
 from __future__ import annotations
 
@@ -56,8 +57,16 @@ def _gqa_scores(q, k):
     return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
 
 
+def _cast_bytes(*ts) -> int:
+    """Bytes read and written by casting ``ts`` to float32 (none if they
+    are float32): numel x (itemsize + 4); a quantized cache's first cast."""
+    return sum(t.numel() * (t.element_size() + 4) for t in ts if t.dtype != torch.float32)
+
+
 def attention_dot(q, k, v, **kw):
-    with named_scope("attention_core"):
+    with named_scope("attention_core") as sp:
+        if sp.recording:
+            sp.note(cast_bytes=_cast_bytes(k, v))
         return _attention_dot(q, k, v, **kw)
 
 
@@ -82,7 +91,9 @@ def _attention_dot(q, k, v, *, causal=True, window=None, q_offset=0,
 
 
 def attention_chunked(q, k, v, **kw):
-    with named_scope("attention_core"):
+    with named_scope("attention_core") as sp:
+        if sp.recording:
+            sp.note(cast_bytes=_cast_bytes(k, v))
         return _attention_chunked(q, k, v, **kw)
 
 

@@ -65,7 +65,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.scope import current_scopes
+from repro_torch.core.scope import current_scopes, named_scope
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -179,6 +179,16 @@ def _write_pos(buf, pos: int, val):
     at = pos - offset[1]
     if 0 <= at < shape[1]:
         buf.to_local()[:, at] = local[:, 0]
+
+
+def _write_states(ssm, conv, h_new, conv_new):
+    """A Mamba-2 layer's decode step: its new SSM and conv states into the
+    cache, in place."""
+    with named_scope("cache_write") as sp:
+        ssm.copy_(h_new)
+        conv.copy_(conv_new)
+        if sp.recording:
+            sp.note(bytes=ssm.nbytes + conv.nbytes)
 
 
 def _save_unbatched_products(ctx, op, *args, **kwargs):
@@ -385,91 +395,97 @@ class LM(nn.Module):
         (no RoPE, non-causal, dot).
         Returns (out [B,S,D], new_cache_entry_or_None).
         """
-        cfg, plan = self.cfg, self.plan
-        B, S, D = x.shape
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-        if "bq" in p:
-            q = q + p["bq"]
-        if cross_kv is not None:
-            q = plan.act(q, "batch", "seq", "q_heads", "head_dim")
-            out = attn_mod.attention(
-                q, *self._kv_for_sharded_q(cross_kv["k"], cross_kv["v"]), impl="dot",
-                causal=False, window=None, chunk=cfg.attention_chunk)
-            return self._sublayer_out(torch.einsum("bshk,hkd->bsd", out, p["wo"])), None
+        with named_scope("attention"):
+            cfg, plan = self.cfg, self.plan
+            B, S, D = x.shape
+            q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+            if "bq" in p:
+                q = q + p["bq"]
+            if cross_kv is not None:
+                q = plan.act(q, "batch", "seq", "q_heads", "head_dim")
+                out = attn_mod.attention(
+                    q, *self._kv_for_sharded_q(cross_kv["k"], cross_kv["v"]), impl="dot",
+                    causal=False, window=None, chunk=cfg.attention_chunk)
+                return self._sublayer_out(torch.einsum("bshk,hkd->bsd", out, p["wo"])), None
 
-        # train and prefill: widen the replicated kv weights so that each
-        # shard projects only the kv heads its q heads read, then repeat
-        # them (locally) for those q heads; prefill gathers the cache it
-        # emits from the widened heads (``_kv_cache_of``)
-        widened = self._kv_replicated() and cache is None
-        wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
-        if self._kv_replicated() and cache is not None and plan.fsdp:
-            # decode under FSDP: the kv projections' contraction (the embed
-            # dim the weights hold cut over the data axes) split over the
-            # model axis, as XLA splits it on one pod, then all-reduced
-            wk, wv = (model_cut(w, 0, gather=True) for w in (wk, wv))
-            x = model_cut(x, 2)
-        if widened:
-            w_rep, k_rep = self._kv_widening()
-            wk, wv = (self._widen(w, 1, w_rep, ("embed", "q_heads", "head_dim"))
-                      for w in (wk, wv))
+            # train and prefill: widen the replicated kv weights so that each
+            # shard projects only the kv heads its q heads read, then repeat
+            # them (locally) for those q heads; prefill gathers the cache it
+            # emits from the widened heads (``_kv_cache_of``)
+            widened = self._kv_replicated() and cache is None
+            wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+            if self._kv_replicated() and cache is not None and plan.fsdp:
+                # decode under FSDP: the kv projections' contraction (the embed
+                # dim the weights hold cut over the data axes) split over the
+                # model axis, as XLA splits it on one pod, then all-reduced
+                wk, wv = (model_cut(w, 0, gather=True) for w in (wk, wv))
+                x = model_cut(x, 2)
+            if widened:
+                w_rep, k_rep = self._kv_widening()
+                wk, wv = (self._widen(w, 1, w_rep, ("embed", "q_heads", "head_dim"))
+                          for w in (wk, wv))
+                if bk is not None:
+                    bk, bv = (self._widen(b, 0, w_rep, ("q_heads", "head_dim")) for b in (bk, bv))
+            k = torch.einsum("bsd,dhk->bshk", x, wk)
+            v = torch.einsum("bsd,dhk->bshk", x, wv)
             if bk is not None:
-                bk, bv = (self._widen(b, 0, w_rep, ("q_heads", "head_dim")) for b in (bk, bv))
-        k = torch.einsum("bsd,dhk->bshk", x, wk)
-        v = torch.einsum("bsd,dhk->bshk", x, wv)
-        if bk is not None:
-            k, v = k + bk, v + bv
-        heads = "q_heads" if widened else "kv_heads"
-        k, v = (plan.act(t, "batch", "seq", heads, "head_dim") for t in (k, v))
-        if widened and k_rep > 1:
-            k, v = (self._widen(t, 2, k_rep, ("batch", "seq", "q_heads", "head_dim"))
-                    for t in (k, v))
-        if pos is None:
-            positions = torch.arange(S, device=x.device)[None, :]
-        else:
-            positions = torch.full((B, 1), pos, device=x.device)
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
-        q = plan.act(q, "batch", "seq", "q_heads", "head_dim")
-
-        new_cache = None
-        if cache is not None:
-            assert pos is not None
-            if "k_scale" in cache:
-                kq, ks = _quantize_kv(k)
-                vq, vs = _quantize_kv(v)
-                for name, val in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
-                    _write_pos(cache[name], pos, val)
-                k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+                k, v = k + bk, v + bv
+            heads = "q_heads" if widened else "kv_heads"
+            k, v = (plan.act(t, "batch", "seq", heads, "head_dim") for t in (k, v))
+            if widened and k_rep > 1:
+                k, v = (self._widen(t, 2, k_rep, ("batch", "seq", "q_heads", "head_dim"))
+                        for t in (k, v))
+            if pos is None:
+                positions = torch.arange(S, device=x.device)[None, :]
             else:
-                _write_pos(cache["k"], pos, k.to(cache["k"].dtype))
-                _write_pos(cache["v"], pos, v.to(cache["v"].dtype))
-                k_scale = v_scale = None
-            new_cache = cache
-            if self._kv_replicated():
-                # one query row: gather its heads rather than widen the cache
-                q = plan.act(q, "batch", "seq", None, "head_dim")
-            out = attn_mod.attention(
-                q, cache["k"], cache["v"], impl="dot", causal=False,
-                window=window, q_offset=pos, kv_valid_len=pos + 1,
-                k_scale=k_scale, v_scale=v_scale, chunk=cfg.attention_chunk)
-        else:
-            out = attn_mod.attention(
-                q, *((k, v) if widened else self._kv_for_sharded_q(k, v)),
-                impl=cfg.attention_impl, causal=causal,
-                window=window, chunk=cfg.attention_chunk)
-            if prefill_kv_dtype is not None:
-                if widened:
-                    k, v = (self._kv_cache_of(t, B) for t in (k, v))
-                if prefill_kv_dtype == "int8":
-                    kq, ks = _quantize_kv(k)
-                    vq, vs = _quantize_kv(v)
-                    new_cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-                else:
-                    dt = torch_dtype(prefill_kv_dtype)
-                    new_cache = {"k": k.to(dt), "v": v.to(dt)}
-        out = plan.act(out, "batch", "seq", "q_heads", "head_dim")
-        return self._sublayer_out(torch.einsum("bshk,hkd->bsd", out, p["wo"])), new_cache
+                positions = torch.full((B, 1), pos, device=x.device)
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
+            q = plan.act(q, "batch", "seq", "q_heads", "head_dim")
+
+            new_cache = None
+            if cache is not None:
+                assert pos is not None
+                with named_scope("cache_write") as sp:
+                    if "k_scale" in cache:
+                        kq, ks = _quantize_kv(k)
+                        vq, vs = _quantize_kv(v)
+                        for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                                          ("v_scale", vs)):
+                            _write_pos(cache[name], pos, val)
+                        k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+                    else:
+                        _write_pos(cache["k"], pos, k.to(cache["k"].dtype))
+                        _write_pos(cache["v"], pos, v.to(cache["v"].dtype))
+                        k_scale = v_scale = None
+                    if sp.recording:    # one position of each entry
+                        sp.note(bytes=sum(t.numel() // t.shape[1] * t.element_size()
+                                          for t in cache.values()))
+                new_cache = cache
+                if self._kv_replicated():
+                    # one query row: gather its heads rather than widen the cache
+                    q = plan.act(q, "batch", "seq", None, "head_dim")
+                out = attn_mod.attention(
+                    q, cache["k"], cache["v"], impl="dot", causal=False,
+                    window=window, q_offset=pos, kv_valid_len=pos + 1,
+                    k_scale=k_scale, v_scale=v_scale, chunk=cfg.attention_chunk)
+            else:
+                out = attn_mod.attention(
+                    q, *((k, v) if widened else self._kv_for_sharded_q(k, v)),
+                    impl=cfg.attention_impl, causal=causal,
+                    window=window, chunk=cfg.attention_chunk)
+                if prefill_kv_dtype is not None:
+                    if widened:
+                        k, v = (self._kv_cache_of(t, B) for t in (k, v))
+                    if prefill_kv_dtype == "int8":
+                        kq, ks = _quantize_kv(k)
+                        vq, vs = _quantize_kv(v)
+                        new_cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+                    else:
+                        dt = torch_dtype(prefill_kv_dtype)
+                        new_cache = {"k": k.to(dt), "v": v.to(dt)}
+            out = plan.act(out, "batch", "seq", "q_heads", "head_dim")
+            return self._sublayer_out(torch.einsum("bshk,hkd->bsd", out, p["wo"])), new_cache
 
     def _sublayer_out(self, h):
         """A sub-layer's output back at (batch, seq, embed): on a mesh the
@@ -553,11 +569,12 @@ class LM(nn.Module):
     def _ffn(self, x, p, is_moe: bool):
         """A MoE FFN or a dense SwiGLU with params ``p``; returns (y,
         aux_loss), the aux loss 0 for a dense FFN."""
-        if is_moe:
-            return moe_mod.moe_ffn(x, p, self.cfg.moe, self.plan, impl=self.cfg.moe_impl,
-                                   gather_mode=self.cfg.moe_gather)
-        y = swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-        return self._sublayer_out(y), torch.zeros((), device=x.device)
+        with named_scope("ffn"):
+            if is_moe:
+                return moe_mod.moe_ffn(x, p, self.cfg.moe, self.plan, impl=self.cfg.moe_impl,
+                                       gather_mode=self.cfg.moe_gather)
+            y = swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+            return self._sublayer_out(y), torch.zeros((), device=x.device)
 
     def _layer_call(self, train: bool):
         """How a stack calls one layer (or hybrid group): through
@@ -587,7 +604,9 @@ class LM(nn.Module):
         if row_mask is not None and self.cfg.moe is not None:
             raise NotImplementedError("padded microbatches with MoE layers: the padding "
                                       "rows would take expert capacity")
-        with self.spmd():
+        span = (named_scope("prefill", batch=tokens.shape[0], prompt=tokens.shape[1])
+                if mode == "prefill" else contextlib.nullcontext())
+        with self.spmd(), span:
             return self._forward(tokens, embeds_prefix=embeds_prefix, enc_embeds=enc_embeds,
                                  labels=labels, row_mask=row_mask, mode=mode,
                                  kv_dtype=kv_dtype)
@@ -603,14 +622,11 @@ class LM(nn.Module):
             enc_out = self._encoder(enc_embeds)
         x, new_cache, aux = self._stack(
             x, enc_out=enc_out, prefill_kv_dtype=kv_dtype if mode == "prefill" else None)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        head = self._head()
-
         if mode == "prefill":
-            logits = torch.einsum("bsd,dv->bsv", x[:, -1:], head)
-            return {"logits": self._mask_vocab(logits), "cache": new_cache}
+            return {"logits": self._logits(x, last=True), "cache": new_cache}
 
-        logits = torch.einsum("bsd,dv->bsv", x, head)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        logits = torch.einsum("bsd,dv->bsv", x, self._head())
         out = {"aux_loss": aux}
         if labels is not None:
             n_img = x.shape[1] - tokens.shape[1]
@@ -623,6 +639,14 @@ class LM(nn.Module):
             out["logits"] = self._mask_vocab(logits)
         return out
 
+    def _logits(self, x, last=False):
+        """The serve head: the final norm, the head product (of the last
+        position only, with ``last``) and the padded vocabulary masked."""
+        with named_scope("head"):
+            x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+            logits = torch.einsum("bsd,dv->bsv", x[:, -1:] if last else x, self._head())
+            return self._mask_vocab(logits)
+
     def _mask_vocab(self, logits):
         v_real = self.cfg.vocab_size
         if logits.shape[-1] == v_real:
@@ -630,11 +654,12 @@ class LM(nn.Module):
         return logits.masked_fill(vocab_iota(logits) >= v_real, -1e30)
 
     def _embed_inputs(self, tokens, embeds_prefix=None):
-        x = F.embedding(tokens, self.embed)
-        x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
-        if embeds_prefix is not None:
-            x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
-        return self.plan.act(x, "batch", "seq", "embed")
+        with named_scope("embed"):
+            x = F.embedding(tokens, self.embed)
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+            if embeds_prefix is not None:
+                x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
+            return self.plan.act(x, "batch", "seq", "embed")
 
     def _encoder(self, enc_embeds):
         """The non-causal encoder tower over frames cast to ``cfg.dtype``."""
@@ -683,15 +708,15 @@ class LM(nn.Module):
             return x + self._sublayer_out(h), states
 
         for i, blk in enumerate(self.blocks):
-            h0 = conv0 = None
-            if decode:
-                h0, conv0 = cache["ssm"][i], cache["conv"][i]
-            x, (h_new, conv_new) = call(layer, x, blk, h0, conv0)
-            if decode:
-                cache["ssm"][i].copy_(h_new)
-                cache["conv"][i].copy_(conv_new)
-            elif want_cache:
-                new_layers.append((h_new, conv_new))
+            with named_scope("layer", i=i):
+                h0 = conv0 = None
+                if decode:
+                    h0, conv0 = cache["ssm"][i], cache["conv"][i]
+                x, (h_new, conv_new) = call(layer, x, blk, h0, conv0)
+                if decode:
+                    _write_states(cache["ssm"][i], cache["conv"][i], h_new, conv_new)
+                elif want_cache:
+                    new_layers.append((h_new, conv_new))
         if decode:
             return x, cache, aux
         if not want_cache:
@@ -740,9 +765,10 @@ class LM(nn.Module):
                            {name: t[i] for name, t in self_cache.items()})
             layer_cross = (None if cross_cache is None else
                            {name: t[i] for name, t in cross_cache.items()})
-            x, new_c, new_x, aux = call(
-                self._layer, i, x, cache=layer_cache, pos=pos, enc_out=enc_out,
-                cross_cache=layer_cross, prefill_kv_dtype=prefill_kv_dtype)
+            with named_scope("layer", i=i):
+                x, new_c, new_x, aux = call(
+                    self._layer, i, x, cache=layer_cache, pos=pos, enc_out=enc_out,
+                    cross_cache=layer_cross, prefill_kv_dtype=prefill_kv_dtype)
             new_self.append(new_c)
             new_cross.append(new_x)
             auxes.append(aux)
@@ -766,8 +792,9 @@ class LM(nn.Module):
         call = self._layer_call(train=not decode and prefill_kv_dtype is None)
         auxes, new_groups = [], []
         for g in range(len(self.groups)):
-            x, aux, states = call(self._group, g, x, cache=cache, pos=pos,
-                                  prefill_kv_dtype=prefill_kv_dtype)
+            with named_scope("layer", i=g):
+                x, aux, states = call(self._group, g, x, cache=cache, pos=pos,
+                                      prefill_kv_dtype=prefill_kv_dtype)
             auxes.append(aux)
             new_groups.append(states)
         aux = torch.stack(auxes).mean()
@@ -805,8 +832,8 @@ class LM(nn.Module):
                 h, (h_new, conv_new) = ssm_mod.mamba_block(
                     xin, grp.mamba[mamba_i], cfg, h0=h0, conv0=conv0, decode=decode)
                 if decode:
-                    cache["ssm"][g, mamba_i].copy_(h_new)
-                    cache["conv"][g, mamba_i].copy_(conv_new)
+                    _write_states(cache["ssm"][g, mamba_i], cache["conv"][g, mamba_i],
+                                  h_new, conv_new)
                 states.append(h_new)
                 convs.append(conv_new)
                 mamba_i += 1
@@ -828,12 +855,10 @@ class LM(nn.Module):
         counted).  Writes the new key and value (or the new SSM and conv
         states) into ``cache`` in place.  Returns (logits [B,1,V_pad] with
         the padded vocab masked, cache)."""
-        with self.spmd():
+        with self.spmd(), named_scope("decode", batch=token.shape[0], pos=pos):
             x = self._embed_inputs(token)
             x, cache, _ = self._stack(x, cache=cache, pos=pos)
-            x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-            logits = torch.einsum("bsd,dv->bsv", x, self._head())
-            return self._mask_vocab(logits), cache
+            return self._logits(x), cache
 
     # ----------------------------------------------------------- caches
     def cache_layout(self, batch: int, seq: int, kv_dtype: str = "bfloat16"):

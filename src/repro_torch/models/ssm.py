@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.scope import named_scope
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import copy_bytes
 from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
 from repro_torch.models.layers import rms_norm
 from repro_torch.sharding.plan import model_cut, per_shard
@@ -49,11 +50,13 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
                              x, dt, A, groups(B), groups(C), chunk=chunk, h0=h0),
                          (pl, pl, cut(None, 0), cut(0, None), cut(0, None), cut(0, 1)),
                          (pl, cut(0, 1)))(x, dt, A, B, C, h0)
-    with named_scope("ssd_core"):
-        y, h = ssd_scan_hmajor(
-            x.movedim(1, 2).contiguous(), dt.movedim(1, 2).contiguous(), A.float(),
-            B.movedim(1, 2).contiguous(), C.movedim(1, 2).contiguous(), chunk=chunk,
-            h0=None if h0 is None else h0.float().contiguous())
+    with named_scope("ssd") as sp, named_scope("ssd_core"):
+        views = [t.movedim(1, 2) for t in (x, dt, B, C)]
+        if sp.recording:
+            sp.note(copy_bytes=copy_bytes(*views))
+        xh, dth, Bh, Ch = (t.contiguous() for t in views)
+        y, h = ssd_scan_hmajor(xh, dth, A.float(), Bh, Ch, chunk=chunk,
+                               h0=None if h0 is None else h0.float().contiguous())
         return y.movedim(1, 2), h
 
 
@@ -109,15 +112,16 @@ def ssd_decode_step(h, x, dt, A, B, C):
                              h, x, dt, A, groups(B), groups(C)),
                          (pl, cut(0, 1), cut(0, 1), cut(None, 0), cut(0, None), cut(0, None)),
                          (cut(0, 1), pl))(h, x, dt, A, B, C)
-    H = h.shape[1]
-    hg = H // B.shape[1]
-    da = torch.exp(dt.float() * A[None])                          # [b,H]
-    Bh = torch.repeat_interleave(B, hg, dim=1).float()            # [b,H,N]
-    Ch = torch.repeat_interleave(C, hg, dim=1).float()
-    dx = (dt[..., None] * x).float()                              # [b,H,P]
-    h_new = h * da[..., None, None] + dx[..., None] * Bh[:, :, None, :]
-    y = torch.einsum("bhpn,bhn->bhp", h_new, Ch)
-    return y.to(x.dtype), h_new
+    with named_scope("ssd_step"):
+        H = h.shape[1]
+        hg = H // B.shape[1]
+        da = torch.exp(dt.float() * A[None])                          # [b,H]
+        Bh = torch.repeat_interleave(B, hg, dim=1).float()            # [b,H,N]
+        Ch = torch.repeat_interleave(C, hg, dim=1).float()
+        dx = (dt[..., None] * x).float()                              # [b,H,P]
+        h_new = h * da[..., None, None] + dx[..., None] * Bh[:, :, None, :]
+        y = torch.einsum("bhpn,bhn->bhp", h_new, Ch)
+        return y.to(x.dtype), h_new
 
 
 def causal_conv(x, w, b, halo=None):
@@ -211,67 +215,69 @@ def mamba_block(u, p, cfg: ModelConfig, h0=None, conv0=None, decode: bool = Fals
     Prefill ignores ``conv0`` and starts the SSD at ``h0`` (zeros if None);
     decode needs both.  Returns (out [B,S,D], (h_final, conv_state_final)).
     """
-    s = cfg.ssm
-    B_, S, D = u.shape
-    di = s.d_inner(cfg.d_model)
-    nh = s.n_heads(cfg.d_model)
-    G, N, P = s.n_groups, s.d_state, s.head_dim
-    GN = G * N
+    with named_scope("mamba"):
+        s = cfg.ssm
+        B_, S, D = u.shape
+        di = s.d_inner(cfg.d_model)
+        nh = s.n_heads(cfg.d_model)
+        G, N, P = s.n_groups, s.d_state, s.head_dim
+        GN = G * N
 
-    z = u @ p["w_z"]
-    xc = u @ p["w_x"]                                             # [B,S,di]
-    # serving on a mesh, the B/C channels are cut over the model axis
-    # through their conv and silu, as XLA partitions them there; the train
-    # step keeps them whole, as XLA does under the gradient (the weights
-    # gathered whole: under FSDP DTensor would rather cut the products)
-    cut_bc = not torch.is_grad_enabled()
-    w_B, w_C = ((model_cut(w, 1) if cut_bc else _whole(w)) for w in (p["w_B"], p["w_C"]))
-    Bp = u @ w_B                                                  # [B,S,G*N]
-    Cp = u @ w_C
-    dt = u @ p["w_dt"]                                            # [B,S,nh]
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
+        z = u @ p["w_z"]
+        xc = u @ p["w_x"]                                             # [B,S,di]
+        # serving on a mesh, the B/C channels are cut over the model axis
+        # through their conv and silu, as XLA partitions them there; the train
+        # step keeps them whole, as XLA does under the gradient (the weights
+        # gathered whole: under FSDP DTensor would rather cut the products)
+        cut_bc = not torch.is_grad_enabled()
+        w_B, w_C = ((model_cut(w, 1) if cut_bc else _whole(w)) for w in (p["w_B"], p["w_C"]))
+        Bp = u @ w_B                                                  # [B,S,G*N]
+        Cp = u @ w_C
+        dt = u @ p["w_dt"]                                            # [B,S,nh]
+        dt = F.softplus(dt.float() + p["dt_bias"].float())
 
-    if decode:
-        xbc_raw = torch.cat([xc, Bp, Cp], dim=-1)
-        x0, B0, C0 = conv0[..., :di], conv0[..., di:di + GN], conv0[..., di + GN:]
-        xc, _ = causal_conv_step(x0, xc[:, 0], p["conv_w"], p["conv_b"])
-        Bp, _ = causal_conv_step(B0, Bp[:, 0], p["conv_wB"], p["conv_bB"])
-        Cp, _ = causal_conv_step(C0, Cp[:, 0], p["conv_wC"], p["conv_bC"])
-        xc, Bp, Cp = xc[:, None], Bp[:, None], Cp[:, None]
-        ct = torch.promote_types(conv0.dtype, xbc_raw.dtype)
-        conv_new = torch.cat([conv0.to(ct), xbc_raw.to(ct)], dim=1)[:, 1:]
-    else:
-        xc_raw, B_raw, C_raw = xc, Bp, Cp
-        xc = causal_conv(xc, p["conv_w"], p["conv_b"])
-        Bp = causal_conv(Bp, p["conv_wB"], p["conv_bB"])
-        Cp = causal_conv(Cp, p["conv_wC"], p["conv_bC"])
-        # the raw rows' tail, cut before the channels are joined: on a mesh
-        # only the tail of the model-sharded x channels is gathered
-        W1 = s.conv_width - 1
-        raw = (t[:, -W1:] if S >= W1 else F.pad(t, (0, 0, W1 - S, 0))
-               for t in (xc_raw, B_raw, C_raw))
-        conv_new = torch.cat(list(raw), dim=-1).float()
+        with named_scope("conv"):
+            if decode:
+                xbc_raw = torch.cat([xc, Bp, Cp], dim=-1)
+                x0, B0, C0 = conv0[..., :di], conv0[..., di:di + GN], conv0[..., di + GN:]
+                xc, _ = causal_conv_step(x0, xc[:, 0], p["conv_w"], p["conv_b"])
+                Bp, _ = causal_conv_step(B0, Bp[:, 0], p["conv_wB"], p["conv_bB"])
+                Cp, _ = causal_conv_step(C0, Cp[:, 0], p["conv_wC"], p["conv_bC"])
+                xc, Bp, Cp = xc[:, None], Bp[:, None], Cp[:, None]
+                ct = torch.promote_types(conv0.dtype, xbc_raw.dtype)
+                conv_new = torch.cat([conv0.to(ct), xbc_raw.to(ct)], dim=1)[:, 1:]
+            else:
+                xc_raw, B_raw, C_raw = xc, Bp, Cp
+                xc = causal_conv(xc, p["conv_w"], p["conv_b"])
+                Bp = causal_conv(Bp, p["conv_wB"], p["conv_bB"])
+                Cp = causal_conv(Cp, p["conv_wC"], p["conv_bC"])
+                # the raw rows' tail, cut before the channels are joined: on a mesh
+                # only the tail of the model-sharded x channels is gathered
+                W1 = s.conv_width - 1
+                raw = (t[:, -W1:] if S >= W1 else F.pad(t, (0, 0, W1 - S, 0))
+                       for t in (xc_raw, B_raw, C_raw))
+                conv_new = torch.cat(list(raw), dim=-1).float()
 
-    def silu(a):
-        return F.silu(a.float()).to(u.dtype)
+        def silu(a):
+            return F.silu(a.float()).to(u.dtype)
 
-    xc, Bp, Cp = silu(xc), silu(Bp), silu(Cp)
-    if cut_bc:      # the SSD takes B and C whole over the heads' axis
-        Bp, Cp = model_cut(Bp, None), model_cut(Cp, None)
-    xh = xc.reshape(B_, S, nh, P)
-    Bm = Bp.reshape(B_, S, G, N)
-    Cm = Cp.reshape(B_, S, G, N)
-    A = -torch.exp(p["a_log"].float())                            # [nh], negative
+        xc, Bp, Cp = silu(xc), silu(Bp), silu(Cp)
+        if cut_bc:      # the SSD takes B and C whole over the heads' axis
+            Bp, Cp = model_cut(Bp, None), model_cut(Cp, None)
+        xh = xc.reshape(B_, S, nh, P)
+        Bm = Bp.reshape(B_, S, G, N)
+        Cm = Cp.reshape(B_, S, G, N)
+        A = -torch.exp(p["a_log"].float())                            # [nh], negative
 
-    if decode:
-        y, h_new = ssd_decode_step(h0, xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
-        y = y[:, None]
-    else:
-        y, h_new = ssd_chunked(xh, dt, A, Bm, Cm, chunk=min(s.chunk_size, S), h0=h0)
+        if decode:
+            y, h_new = ssd_decode_step(h0, xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+            y = y[:, None]
+        else:
+            y, h_new = ssd_chunked(xh, dt, A, Bm, Cm, chunk=min(s.chunk_size, S), h0=h0)
 
-    y = y + p["d_skip"].float()[None, None, :, None] * xh
-    y = y.reshape(B_, S, di)
-    y = y * F.silu(z.float()).to(y.dtype)                         # gated
-    y = _norm(y, p["norm"], cfg.norm_eps)
-    out = y.to(u.dtype) @ p["w_out"]
-    return out.to(u.dtype), (h_new, conv_new)
+        y = y + p["d_skip"].float()[None, None, :, None] * xh
+        y = y.reshape(B_, S, di)
+        y = y * F.silu(z.float()).to(y.dtype)                         # gated
+        y = _norm(y, p["norm"], cfg.norm_eps)
+        out = y.to(u.dtype) @ p["w_out"]
+        return out.to(u.dtype), (h_new, conv_new)
