@@ -10,7 +10,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2. build: compile every kernel of the serve paths from ``src/repro_torch/
    kernels/csrc`` into ``build/kernels`` (one nvcc per source, all started
    together) and print the build seconds, ptxas's register lines and each
-   variant's dynamic shared memory and blocks per SM;
+   variant's dynamic shared memory and blocks per SM (K3's split kernel:
+   the blocks per SM that its split rule counts on);
 3. kernels: hold each kernel (K1 flash attention, K2 SSD scan) against its
    plain PyTorch version on the card, every f32 case beside its bf16 twin
    (bf16 takes a tensor-core variant: K1 "wg", wgmma and TMA, at hd 64 and
@@ -24,15 +25,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    f32, held to half the tolerance; "wg" against the f32 plain version
    beside "fma") and output rounding, beside the "fma" kernel and the tc kernel
    on bf16 operands only, on the same inputs;
+   (b) K3, decode attention, through ``models.attention.attention`` (the
+   rule sends these calls to it) on a layer's slice of a stacked cache, at
+   the decode steps of internlm2-1.8b's two benchmark cells (B 4, S 32,784,
+   24,577 keys; B 64, 1,088 keys), those again with peaked scores (q at the
+   std the model's init gives it), and at the other head dims, query groups,
+   windows and types it takes, against its plain version and the dot path
+   it replaces (3e-2, each output row within 3e-2 of its own norm); then
+   timed at the two cells' shapes beside its bound (the k and v bytes it
+   reads over 3.35 TB/s), the dot path, its plain version and SDPA
+   (``library_ms``, a yardstick the port never calls), with a sweep of the
+   split count; the ``k3`` JSON line gives the numbers;
 4. serve: ``repro_torch.launch.serve`` on internlm2-1.8b at full width
    (24 layers, seeded random bf16 weights), batch 4, prompt 1024, 32 new
    tokens, flash prefill; count the kernel launches of that run by variant
-   (24 K1 "wg"), check the logits, prefill->decode consistency, and
+   (24 K1 "wg"; K3's split kernel 24 a decode step, and its combine kernel
+   24 or none), check the logits, prefill->decode consistency, and
    flash against dot prefill;
 5. serve, SSM: the same entry point on mamba2-1.3b at full width (48
    layers), batch 4, prompt 1024, 32 new tokens; every prefill layer's SSD
    goes through K2; count the launches by variant (48 K2 "wg", none in
-   decode), check the tokens, the logits and prefill->decode consistency
+   decode; no K3), check the tokens, the logits and prefill->decode consistency
    (K2 prefill against the plain decode recurrence);
 6. times: kernel (and, on the same inputs, its other variants: K1 "tc" and
    "fma", K2 "tc" and "fma"), plain version, library call and serve times,
@@ -298,7 +311,7 @@ def build_kernels():
     """Build every kernel source at once (one nvcc each); seconds by name."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
-    names = ("flash_attention", "ssd_scan")
+    names = ("flash_attention", "ssd_scan", "decode_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         futures = {name: pool.submit(build.build, name) for name in names}
         built = {name: f.result() for name, f in futures.items()}
@@ -330,6 +343,15 @@ def kernel_occupancy():
     for name, o in out.items():
         log(f"{name}: {o['smem_bytes']} B dynamic shared memory, "
             f"{o['blocks_per_sm']} blocks per SM")
+    from repro_torch.kernels import decode_attention
+    for gt, want in decode_attention.BLOCKS_PER_SM.items():
+        for hd in decode_attention.HEAD_DIMS:
+            blocks = decode_attention.occupancy(hd, gt)
+            if blocks != want:
+                fail(f"K3 at hd {hd}, {gt} heads a block: {blocks} blocks a SM on the card, "
+                     f"but k3_splits counts {want}")
+        out[f"K3 split gt={gt}"] = {"smem_bytes": 0, "blocks_per_sm": want}
+        log(f"K3 split kernel, {gt} heads a block: {want} blocks per SM at every head dim")
     return out
 
 
@@ -419,15 +441,116 @@ def check_k1():
     return serve
 
 
+# phase 3 (b): K3 at the decode steps of internlm2-1.8b's two benchmark cells,
+# (B, S, valid length, H, K, hd): the 24,576-token batch's median step and the
+# longest short request's last
+K3_CELL_SHAPES = {"internlm2-1.8b.longdoc": (4, 32_784, 24_577, 16, 8, 128),
+                  "internlm2-1.8b.short": (64, 1_088, 1_088, 16, 8, 128)}
+K3_CASES = [   # (B, S, valid length, H, K, hd, window, dtype): the other shapes it takes
+    (64, 1_088, 300, 16, 8, 128, None, "bfloat16"),
+    (2, 300, 290, 16, 16, 64, None, "bfloat16"),        # G 1
+    (2, 900, 777, 64, 8, 128, 100, "bfloat16"),         # G 8 (Jamba), a window
+    (2, 900, 877, 56, 8, 128, None, "bfloat16"),        # G 7 (llava)
+    (2, 600, 555, 32, 2, 16, None, "bfloat16"),         # G 16, hd 16
+    (3, 400, 399, 8, 4, 256, 64, "bfloat16"),           # hd 256 (gemma3), a window
+    (3, 400, 333, 8, 4, 32, None, "float16"),
+    (1, 50, 50, 4, 2, 64, None, "bfloat16"),            # one split
+]
+K3_TOL = 3e-2      # K1's bf16 tolerance
+# peaked scores: q and k at the serve init's std (11.3 each, as phase 3's
+# peaked K1 case) give the scores that q alone at 11.3^2 gives, of std ~128
+K3_PEAKED_Q_STD = 11.3 * 11.3
+K3_SPLIT_SWEEP = {"internlm2-1.8b.longdoc": (4, 6, 8, 9, 12, 16, 33),
+                  "internlm2-1.8b.short": (1, 2, 3)}
+
+
+def _k3_inputs(B, S, H, K, hd, dtype, seed, q_std=1.0):
+    """q [B,1,H,hd] and a layer's k, v slices of a stacked [2, 2, B, S, K, hd]
+    cache, on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = (q_std * torch.randn(B, 1, H, hd, generator=g, device="cuda")).to(dtype)
+    cache = torch.randn(2, 2, B, S, K, hd, generator=g, device="cuda").to(dtype)
+    return q, cache[1, 0], cache[1, 1]
+
+
+def check_time_k3():
+    """Phase 3 (b): K3 through the attention rule against its plain version
+    and the dot path, then timed at the cells' decode shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import attention as ta
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(f"{name}{' peaked' if peaked else ''}", (B, S, valid, H, K, hd, None, "bfloat16"),
+              peaked) for name, (B, S, valid, H, K, hd) in K3_CELL_SHAPES.items()
+             for peaked in (False, True)]
+    cases += [(f"B{c[0]} S{c[1]} valid {c[2]} H{c[3]} K{c[4]} hd{c[5]} window {c[6]} {c[7]}",
+               c, False) for c in K3_CASES]
+    checks = {}
+    for i, (name, (B, S, valid, H, K, hd, window, dtype), peaked) in enumerate(cases):
+        q, k, v = _k3_inputs(B, S, H, K, hd, getattr(torch, dtype), seed=40 + i,
+                             q_std=K3_PEAKED_Q_STD if peaked else 1.0)
+        kw = dict(causal=False, window=window, q_offset=valid - 1, kv_valid_len=valid)
+        if ta.k3_refusal(q, k, v, impl="dot", **kw) is not None:
+            fail(f"K3 {name}: the rule refuses it ({ta.k3_refusal(q, k, v, impl='dot', **kw)})")
+        lo = max(0, valid - window) if window else 0
+        _, splits, _ = da._split(B, H, K, valid - lo, sms)
+        before = da.decode_attention.launches
+        out = ta.attention(q, k, v, impl="dot", **kw)
+        torch.cuda.synchronize()
+        if da.decode_attention.launches != before + (1 if splits == 1 else 2):
+            fail(f"K3 {name}: {da.decode_attention.launches - before} launches, want "
+                 f"{1 if splits == 1 else 2} ({splits} splits)")
+        dot = ta._attention_dot(q, k, v, **kw)
+        plain = da.decode_attention_plain(q, k, v, lo=lo, hi=valid)
+        checks[name] = dict(_hold(f"K3 {name}", [(out, dot), (out, plain)], K3_TOL, rows=True),
+                            splits=splits)
+        log(f"K3 {name}: {json.dumps(checks[name])}")
+        del q, k, v, dot, plain, out
+    cells = {}
+    for name, (B, S, valid, H, K, hd) in K3_CELL_SHAPES.items():
+        q, k, v = _k3_inputs(B, S, H, K, hd, torch.bfloat16, seed=60)
+        kw = dict(causal=False, q_offset=valid - 1, kv_valid_len=valid)
+        kernel = lambda: da.decode_attention(q, k, v, lo=0, hi=valid)  # noqa: E731
+        dot = lambda: ta._attention_dot(q, k, v, **kw)  # noqa: E731
+        qh, kh, vh = q.transpose(1, 2), k[:, :valid].transpose(1, 2), v[:, :valid].transpose(1, 2)
+        library = lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)  # noqa: E731
+        nbytes = da.kv_bytes(k, 0, valid)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        t = dict(splits=da._split(B, H, K, valid, sms)[1], ms=_time_ms(kernel),
+                 device_ms=_device_ms(kernel),
+                 plain_ms=_time_ms(lambda: da.decode_attention_plain(q, k, v, lo=0, hi=valid),
+                                   n=3, warmup=1),
+                 dot_ms=_time_ms(dot, n=5, warmup=1), dot_device_ms=_device_ms(dot, reps=3),
+                 library_ms=_time_ms(library), library_device_ms=_device_ms(library),
+                 bound_ms=bound_ms, bound_by="bytes", bytes=nbytes)
+        t["bound_share"] = bound_ms / t["device_ms"]
+        t["tb_per_s"] = nbytes / t["device_ms"] / 1e9
+        t["split_sweep"] = {n: _device_ms(lambda: da._launch(q, k, v, lo=0, hi=valid, splits=n))
+                            for n in K3_SPLIT_SWEEP[name]}
+        cells[name] = t
+        log(f"K3 at {name}: {json.dumps(t)}")
+        del q, k, v, qh, kh, vh
+    return {"checks": checks, "cells": cells}
+
+
 def _reset_launches():
     """Set every kernel's launch counts to 0; returns the wrappers by kernel."""
     from repro_torch.kernels.flash_attention import flash_attention_hmajor
     from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
+    from repro_torch.kernels.decode_attention import decode_attention
     wrappers = {"K1": flash_attention_hmajor, "K2": ssd_scan_hmajor}
-    for w in wrappers.values():
+    for w in (*wrappers.values(), decode_attention):
         w.launches = 0
         w.launches_by_variant.update(dict.fromkeys(w.launches_by_variant, 0))
     return wrappers
+
+
+def _k3_launches():
+    """K3's launches by kernel ("split", "combine") since the last reset."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    return dict(decode_attention.launches_by_variant)
 
 
 def _serve_counted(args, cfg=None):
@@ -610,6 +733,13 @@ def run_serve():
             or counts["K2"] != 0):
         fail(f"launches {counts} {by_variant} in the internlm2 serve run, want K1 "
              f"{cfg.num_layers} on wgmma (\"wg\", one per layer of the prefill) and K2 0")
+    k3 = _k3_launches()
+    steps = (GEN - 1) * cfg.num_layers
+    log(f"serve: K3 launches {k3} over {GEN - 1} decode steps of {cfg.num_layers} layers")
+    if k3["split"] != steps or k3["combine"] not in (0, steps):
+        fail(f"K3 launches {k3} in the internlm2 serve run, want the split kernel once per "
+             f"layer of each decode step ({steps}) and the combine kernel as often or never")
+    by_variant["K3"] = k3
     return res, launches, by_variant
 
 
@@ -634,10 +764,10 @@ def run_ssm_serve():
         f"launches {counts} {by_variant}")
     k2v = _k2_variant_of(cfg)
     if (launches != cfg.num_layers or by_variant["K2"][k2v] != cfg.num_layers
-            or counts["K1"] != 0):
+            or counts["K1"] != 0 or any(_k3_launches().values())):
         fail(f"launches {counts} {by_variant} in the mamba2 serve run, want K2 "
              f"{cfg.num_layers} on \"{k2v}\" (one per layer of the prefill, none in "
-             "decode) and K1 0")
+             "decode), K1 0 and K3 0")
     return res, launches, by_variant
 
 
@@ -2747,6 +2877,7 @@ def main():
     occupancy = kernel_occupancy()
     k1_err, k1_share = check_k1()
     (k2_err, k2_share), k2_rounding_split = check_k2()
+    print(json.dumps({"k3": {**check_time_k3(), "card": card}}))
 
     res, k1_launches, serve_variants = run_serve()
     checks = check_serve(res)

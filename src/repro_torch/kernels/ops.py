@@ -3,11 +3,14 @@
 The wrappers accept the model's [B, S, H, hd] layout and convert to the
 kernels' head-major layout and back, as ``repro.kernels.ops`` does.
 K1's call is the "k1" span (``core.scope``), which counts the bytes of
-its layout copies (``copy_bytes``).
+its layout copies (``copy_bytes``); K3's is the "k3" span, which counts the
+bytes of k and v it reads (``bytes``).  K3 reads the model's layout through
+its strides and copies nothing.
 """
 from __future__ import annotations
 
 from repro_torch.core.scope import named_scope
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -23,6 +26,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, softmax_scale=None):
         out = _fa.flash_attention_hmajor(qh, kh, vh, causal=causal, window=w,
                                          softmax_scale=softmax_scale)
         return out.transpose(1, 2)
+
+
+def decode_attention(q, k, v, *, lo, hi, softmax_scale=None):
+    """q [B,1,H,hd]; k,v [B,S,K,hd] -> [B,1,H,hd] over keys lo .. hi-1 (K3)."""
+    with named_scope("k3") as sp:
+        if sp.recording:
+            sp.note(bytes=_da.kv_bytes(k, lo, hi))
+        return _da.decode_attention(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale)
 
 
 def copy_bytes(*views) -> int:

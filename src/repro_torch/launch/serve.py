@@ -15,8 +15,10 @@ kernel: the decoder's (causal) and, for the enc-dec family, the encoder's
 Every prefill Mamba-2 layer (the SSM and hybrid families) goes through K2.
 The enc-dec family gets seeded frame embeddings [B, source_len, D] * 0.02
 and the vlm family a seeded image prefix [B, num_image_tokens, D] * 0.02,
-as ``repro.launch.serve`` draws them.  The decode steps use the plain path, as in
-the JAX package.  ``run(cfg=...)`` takes a config whose depth was cut.
+as ``repro.launch.serve`` draws them.  Decode attention on the card goes
+through K3 (``kernels/decode_attention.py``, which the JAX package has no
+twin of); the rest of a decode step is the plain path, as in the JAX
+package.  ``run(cfg=...)`` takes a config whose depth was cut.
 ``serve_batch`` is the serve loop of one batch, which ``run`` calls.
 
 ``--trace PATH`` runs the batch under ``torch.profiler`` (the CPU, and CUDA

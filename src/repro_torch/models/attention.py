@@ -16,6 +16,12 @@ The dot and chunked paths run inside the "attention_core" scope
 (``core.scope.named_scope``), as JAX's run in its named scope: the
 account sums their traffic by that tag.  As a span it counts
 ``cast_bytes``: what the float32 casts of k and v read and write.
+
+A "dot" call of one query row on the card goes to K3, the decode-attention
+kernel (kernels/decode_attention.py), when ``k3_refusal`` finds nothing
+against it: it reads the bf16 or f16 cache in place, only the keys the
+row attends to, with no float32 cast (its "attention_core" span notes
+``cast_bytes`` 0).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.scope import named_scope
+from repro_torch.kernels.decode_attention import HEAD_DIMS as K3_HEAD_DIMS
 from repro_torch.sharding.plan import per_shard
 
 NEG_INF = -1e30
@@ -216,6 +223,68 @@ def _shardwise(q, k, v, k_scale, v_scale) -> bool:
                for t in (k, v) + tuple(t for t in (k_scale, v_scale) if t is not None))
 
 
+def _key_range(k, *, causal, window, q_offset, kv_valid_len) -> tuple:
+    """(lo, hi): the keys that one query row at ``q_offset`` attends to under
+    ``_mask`` (the valid length, the causal limit and an int window)."""
+    hi = k.shape[1]
+    if kv_valid_len is not None:
+        hi = min(hi, kv_valid_len)
+    if causal:
+        hi = min(hi, q_offset + 1)
+    lo = max(0, q_offset - window + 1) if window is not None and window > 0 else 0
+    return lo, hi
+
+
+def k3_refusal(q, k, v, *, impl, causal=True, window=None, q_offset=0, kv_valid_len=None,
+               k_scale=None, v_scale=None) -> str | None:
+    """Why K3 does not take this attention call, or None when it does.  A
+    rule on the inputs alone: the "dot" impl, one query row, plain tensors
+    (not DTensors) on a CUDA card, k and v of q's type (bf16 or f16) with no
+    scales, an int or no window, a head dim that K3 instantiates, int
+    positions that leave some key, and no gradient wanted."""
+    if impl != "dot":
+        return "impl"
+    if q.dim() != 4 or q.shape[1] != 1:
+        return "more than one query row"
+    if not all(type(t) is torch.Tensor for t in (q, k, v)):
+        return "a DTensor or another tensor subclass"
+    if k_scale is not None or v_scale is not None:
+        return "a quantized cache"
+    if q.dtype not in (torch.bfloat16, torch.float16) or not q.dtype == k.dtype == v.dtype:
+        return "dtype"
+    if window is not None and not isinstance(window, int):
+        return "a tensor window"
+    if q.shape[3] not in K3_HEAD_DIMS:
+        return "head_dim"
+    if not isinstance(q_offset, int) or not isinstance(kv_valid_len, (int, type(None))):
+        return "a tensor position"
+    lo, hi = _key_range(k, causal=causal, window=window, q_offset=q_offset,
+                        kv_valid_len=kv_valid_len)
+    if hi <= lo:
+        return "no key"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return "a gradient"
+    if not _on_card(q, k, v):
+        return "not on a CUDA card"
+    return None
+
+
+def _on_card(q, k, v) -> bool:
+    return q.is_cuda and k.is_cuda and v.is_cuda
+
+
+def attention_decode(q, k, v, *, causal=True, window=None, q_offset=0, kv_valid_len=None,
+                     softmax_scale=None):
+    """One query row through K3, over the keys ``_key_range`` gives."""
+    from repro_torch.kernels import ops as kops
+    lo, hi = _key_range(k, causal=causal, window=window, q_offset=q_offset,
+                        kv_valid_len=kv_valid_len)
+    with named_scope("attention_core") as sp:
+        if sp.recording:
+            sp.note(cast_bytes=0)
+        return kops.decode_attention(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale)
+
+
 def attention(q, k, v, *, impl="auto", causal=True, window=None, q_offset=0,
               kv_valid_len=None, k_scale=None, v_scale=None, chunk=1024,
               softmax_scale=None):
@@ -225,23 +294,36 @@ def attention(q, k, v, *, impl="auto", causal=True, window=None, q_offset=0,
     cut on the mesh (a decode cache sharded on its sequence) runs per shard
     with its softmax's row max and sum all-reduced
     (``_attention_keys_cut``); other DTensors take the ops one by one
-    through DTensor."""
-    if _shardwise(q, k, v, k_scale, v_scale):
-        def local(q, k, v, k_scale, v_scale):
-            return attention(q, k, v, impl=impl, causal=causal, window=window,
-                             q_offset=q_offset, kv_valid_len=kv_valid_len, k_scale=k_scale,
-                             v_scale=v_scale, chunk=chunk, softmax_scale=softmax_scale)
-        pl = q.placements
-        return per_shard(local, (pl,) * 5, pl)(q, k, v, k_scale, v_scale)
+    through DTensor.  A "dot" call that ``k3_refusal`` finds nothing against
+    goes to K3 (the shard-wise path keeps the dot path)."""
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               kv_valid_len=kv_valid_len, k_scale=k_scale, v_scale=v_scale,
               softmax_scale=softmax_scale)
+    if _shardwise(q, k, v, k_scale, v_scale):
+        def local(q, k, v, k_scale, v_scale):
+            return _by_impl(q, k, v, impl=impl, chunk=chunk, decode_kernel=False,
+                            **dict(kw, k_scale=k_scale, v_scale=v_scale))
+        pl = q.placements
+        return per_shard(local, (pl,) * 5, pl)(q, k, v, k_scale, v_scale)
     dims = _keys_cut(q, k)
     if dims and impl == "dot":
         return _attention_keys_cut(q, k, v, dims, **kw)
+    return _by_impl(q, k, v, impl=impl, chunk=chunk, decode_kernel=True, **kw)
+
+
+def _by_impl(q, k, v, *, impl, chunk, decode_kernel, causal, window, q_offset, kv_valid_len,
+             k_scale, v_scale, softmax_scale):
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_valid_len=kv_valid_len, k_scale=k_scale, v_scale=v_scale,
+              softmax_scale=softmax_scale)
     if impl == "auto":
         impl = "chunked" if (q.shape[1] > 2048 or k.shape[1] > 4096) else "dot"
     if impl == "dot":
+        if decode_kernel and k3_refusal(
+                q, k, v, impl=impl, causal=causal, window=window, q_offset=q_offset,
+                kv_valid_len=kv_valid_len, k_scale=k_scale, v_scale=v_scale) is None:
+            return attention_decode(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                    kv_valid_len=kv_valid_len, softmax_scale=softmax_scale)
         return attention_dot(q, k, v, **kw)
     if impl == "chunked":
         return attention_chunked(q, k, v, chunk=chunk, **kw)

@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain versions.
+"""K1, K2 and K3 on the card against their plain versions.
 
 Every f32 case has a bf16 twin: bf16 runs a tensor-core variant wherever
 ``k1_variant`` / ``k2_variant`` choose it (K1: "wg" at hd 64 and 128, "tc"
@@ -7,6 +7,11 @@ K2: "wg" at P and N of 64 and 128, "tc" at the other bf16 shapes), and each
 call is counted under its variant.  Where K1 takes "wg", its "tc" kernel is
 held on the same inputs too; where K2 takes "wg", it is held again at
 several segment counts and twice for the same bits.
+
+K3 (decode attention) is held against the dot path it replaces, at the
+decode shapes of internlm2-1.8b's two benchmark cells and at the other
+head dims, query groups and types it instantiates; a served decode step
+launches it once or twice per layer.
 
 This file needs no jax, so that it also runs on a machine with a CUDA card
 and no jax:
@@ -21,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ks  # noqa: E402
 from repro_torch.kernels.ref import ssd_ref  # noqa: E402
@@ -246,3 +252,125 @@ def test_bootstrap_on_card_matches_numpy(k):
     ref = stats.bootstrap_median_ci_batch(arrays, n_boot=1000, seed=0)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+K3_CASES = [   # (B, S, H, K, hd), dtype, valid length, window: bf16 / f16 at K1's 3e-2
+    ((4, 32_784, 16, 8, 128), "bfloat16", 24_577, None),    # internlm2-1.8b.longdoc
+    ((64, 1_088, 16, 8, 128), "bfloat16", 1_088, None),     # internlm2-1.8b.short
+    ((64, 1_088, 16, 8, 128), "bfloat16", 300, None),
+    ((2, 300, 16, 16, 64), "bfloat16", 290, None),          # G 1
+    ((2, 900, 64, 8, 128), "bfloat16", 777, 100),           # G 8, a window
+    ((2, 900, 56, 8, 128), "bfloat16", 877, None),          # G 7 (llava)
+    ((2, 600, 32, 2, 16), "bfloat16", 555, None),           # G 16, hd 16
+    ((3, 400, 8, 4, 256), "bfloat16", 399, 64),             # hd 256 (gemma3)
+    ((3, 400, 8, 4, 32), "float16", 333, None),
+    ((1, 50, 4, 2, 64), "bfloat16", 50, None),              # one split
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,valid,window", K3_CASES)
+def test_k3_matches_the_dot_path_on_card(shape, dtype, valid, window):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K3 is CUDA C++ with no CPU mode")
+    from repro_torch.models import attention as ta
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, K, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(10)
+    # q at 3 N(0, 1): scores of std ~3, so some rows are peaked and some flat
+    q = (3 * torch.randn(B, 1, H, hd, generator=g, device="cuda")).to(getattr(torch, dtype))
+    cache = torch.randn(2, 2, B, S, K, hd, generator=g, device="cuda").to(q.dtype)
+    k, v = cache[1, 0], cache[1, 1]                 # a layer's slice of a stacked cache
+    kw = dict(causal=False, window=window, q_offset=valid - 1, kv_valid_len=valid)
+    assert ta.k3_refusal(q, k, v, impl="dot", **kw) is None
+    lo = max(0, valid - window) if window else 0
+    _, splits, _ = da._split(B, H, K, valid - lo,
+                             torch.cuda.get_device_properties(0).multi_processor_count)
+    before = da.decode_attention.launches
+    out = ta.attention(q, k, v, impl="dot", **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + (1 if splits == 1 else 2)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    want = ta._attention_dot(q, k, v, **kw)
+    plain = da.decode_attention_plain(q, k, v, lo=lo, hi=valid)
+    runs = [out] + [da._launch(q, k, v, lo=lo, hi=valid, splits=n) for n in (1, 3)]
+    for got in runs:
+        for ref in (want, plain):
+            torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=3e-2)
+            # and each output row within 3e-2 of its own norm: an average over
+            # thousands of keys is as small as the element-wise atol
+            err = (got.float() - ref.float()).norm(dim=-1)
+            assert torch.all(err <= 3e-2 * ref.float().norm(dim=-1)), float(
+                (err / ref.float().norm(dim=-1)).max())
+
+
+@pytest.mark.cuda
+def test_k3_blocks_per_sm_are_what_the_split_rule_counts_on():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the occupancy query runs on the card")
+    for hd in da.HEAD_DIMS:
+        for gt, blocks in da.BLOCKS_PER_SM.items():
+            assert da.occupancy(hd, gt) == blocks, (hd, gt)
+
+
+@pytest.mark.cuda
+def test_k3_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K3 is CUDA C++ with no CPU mode")
+    q = torch.zeros(1, 1, 2, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 1, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16 or all float16"):
+        da.decode_attention(q.float(), k.float(), k.float(), lo=0, hi=8)
+    with pytest.raises(ValueError, match="head_dim"):
+        wide = torch.zeros(1, 8, 1, 96, device="cuda", dtype=torch.bfloat16)
+        da.decode_attention(torch.zeros(1, 1, 2, 96, device="cuda", dtype=torch.bfloat16),
+                            wide, wide, lo=0, hi=8)
+    with pytest.raises(ValueError, match="aligned"):
+        odd = torch.zeros(1, 8, 1, 72, device="cuda", dtype=torch.bfloat16)[..., 4:68]
+        da.decode_attention(q, odd, odd, lo=0, hi=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3), k, lo=0, hi=8)
+    with pytest.raises(ValueError, match="one device"):
+        da.decode_attention(q.cpu(), k, k, lo=0, hi=8)
+    with pytest.raises(ValueError, match="key range"):
+        da.decode_attention(q, k, k, lo=0, hi=9)
+
+
+@pytest.mark.cuda
+def test_a_served_internlm2_decode_step_launches_k3_per_layer():
+    """internlm2-1.8b at full width cut to 2 layers: one profiled decode step
+    launches K3 once or twice a layer, and each layer's "attention_core"
+    span notes no cast bytes and holds a "k3" span with the bytes K3 reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K3 is CUDA C++ with no CPU mode")
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import scope
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), num_layers=2)
+    lm = LM(cfg, device="cuda", seed=0)
+    B, S = 4, 1_000
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(1))
+    with torch.inference_mode():
+        out = lm.forward(prompts, mode="prefill")
+        cache = serve.grow_cache(cfg, out["cache"], S + 8)
+        tok = torch.argmax(out["logits"][:, -1], -1)[:, None]
+        scope.clear()
+        before = da.decode_attention.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            lm.decode(cache, tok, S)
+            torch.cuda.synchronize()
+    launches = da.decode_attention.launches - before
+    spans = scope.spans()
+    scope.clear()
+    cores = [s for s in spans if s.tag == "attention_core"]
+    k3 = [s for s in spans if s.tag == "k3"]
+    assert launches in (cfg.num_layers, 2 * cfg.num_layers)
+    assert len(cores) == len(k3) == cfg.num_layers
+    assert all(s.attrs == {"cast_bytes": 0} for s in cores)
+    assert sorted(s.parent for s in k3) == sorted(s.id for s in cores)
+    assert all(s.attrs["bytes"] == 2 * B * (S + 1) * cfg.num_kv_heads * cfg.head_dim * 2
+               for s in k3)
