@@ -59,7 +59,7 @@ def readings(root, workload, seeds, control_seeds, fault_seeds=(), device="cuda"
             r["control_request_max"] = [float(g.max()) for g in ctrl]
         if seed in fault_seeds:
             lm = port.build(cfg, w)
-            with faults.state_unchanged(cfg["family"]):
+            with faults.state_unchanged(cfg):
                 broken, _ = harness.window(lm, cfg, mix, seed, 0.0)
             del lm
             bad, _ = check.gaps(w, cfg, check.sample(broken, mix.check_requests, seed))

@@ -16,10 +16,9 @@ reference the same way (``control_max_gap``).
 """
 from __future__ import annotations
 
-import importlib
-
 import numpy as np
 
+from cardbench import families
 from cardbench.traffic import sub_seed
 
 
@@ -36,15 +35,11 @@ def sample(batches, n: int, seed: int):
     return [reqs[i] for i in pick]
 
 
-def reference(cfg):
-    return importlib.import_module(f"cardbench.reference.{cfg['family']}")
-
-
 def gaps(w, cfg, requests, control=False):
     """The reference's gaps, one array per request: of each served token
     and, with ``control``, of the token the float8 control ranks first."""
     import torch
-    ref = reference(cfg)
+    ref = families.reference(cfg)
     V = cfg["vocab_size"]
     served, ctrl = [], []
     for rec, row in requests:

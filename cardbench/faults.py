@@ -10,9 +10,12 @@ from __future__ import annotations
 
 import contextlib
 
+from cardbench import families
+
 
 @contextlib.contextmanager
-def _patched(obj, name, value):
+def patched(obj, name, value):
+    """``obj.name`` set to ``value`` while open, restored on exit."""
     old = getattr(obj, name)
     setattr(obj, name, value)
     try:
@@ -21,31 +24,18 @@ def _patched(obj, name, value):
         setattr(obj, name, old)
 
 
-@contextlib.contextmanager
-def state_unchanged(family: str):
-    """A decode step that leaves its state as it was: the dense cache never
-    gets the new key and value, the Mamba-2 step returns the SSM and conv
-    states it was given."""
-    from repro_torch.models import lm, ssm
-    if family == "dense":
-        with _patched(lm, "_write_pos", lambda buf, pos, val: None):
-            yield
-        return
-    block = ssm.mamba_block
-
-    def frozen(u, p, cfg, h0=None, conv0=None, decode=False):
-        out, states = block(u, p, cfg, h0=h0, conv0=conv0, decode=decode)
-        return out, ((h0, conv0) if decode else states)
-    with _patched(ssm, "mamba_block", frozen):
-        yield
+def state_unchanged(cfg):
+    """A decode step that leaves its state as it was, as the family of the
+    configuration ``cfg`` keeps it (its module's ``state_unchanged``)."""
+    return families.module(cfg).state_unchanged()
 
 
 @contextlib.contextmanager
-def token_altered(family: str):
+def token_altered(cfg):
     """The served token changed where it is produced (the next id)."""
     from cardbench import harness
     pick = harness.pick
-    with _patched(harness, "pick", lambda logits: (pick(logits) + 1) % logits.shape[-1]):
+    with patched(harness, "pick", lambda logits: (pick(logits) + 1) % logits.shape[-1]):
         yield
 
 

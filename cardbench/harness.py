@@ -1,10 +1,12 @@
 """The benchmark of the port: one run of one cell, driven by data.
 
 ``run.py`` calls ``main``.  A cell of ``BENCHMARK.json`` names a
-configuration (its file) and a traffic mix (``traffic/<name>.json``); each
-metric is read by ``metrics/<name>.py``; a cell's limits on the output
-check are in ``limits/<cell>.json``.  A later change adds a configuration,
-a mix, a metric or a cell as files of its own and edits none of these.
+configuration (its file) and a traffic mix (``traffic/<name>.json``); the
+configuration's family is ``families/<family>.py`` with its reference
+``reference/<family>.py``; each metric is read by ``metrics/<name>.py``; a
+cell's limits on the output check are in ``limits/<cell>.json``.  A later
+change adds a family, a configuration, a mix, a metric or a cell as files
+of its own and edits none of these.
 
 A run: draw the weights from the seed, build the program with them, warm
 up every shape of the mix, then serve the mix in a closed loop for whole
@@ -17,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib.util
 import json
 import math
 import subprocess
@@ -26,7 +27,7 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
-from cardbench import check, port, weights, yardstick
+from cardbench import check, families, port, weights, yardstick
 from cardbench.traffic import Batch, Mix, sub_seed
 
 BENCH = Path(__file__).resolve().parent.name
@@ -74,7 +75,11 @@ def load_cell(root: Path, workload: str):
         raise Refused(f"no workload {workload!r} in BENCHMARK.json; known: {sorted(cells)}", 1)
     cell = cells[workload]
     config = next(c for c in spec["configs"] if c["name"] == cell["config"])
-    cfg = json.loads((root / config["file"]).read_text())
+    cfg = families.at_root(json.loads((root / config["file"]).read_text()), root)
+    missing = [str(p.relative_to(root)) for p in families.files(cfg) if not p.is_file()]
+    if missing:
+        raise Refused(f"{workload}: family {cfg['family']!r} of {cell['config']} has no "
+                      f"{' and no '.join(missing)}", 1)
     mix = Mix.load(root / BENCH / "traffic" / f"{cell['traffic']}.json")
 
     def mine(m):
@@ -87,16 +92,8 @@ def load_cell(root: Path, workload: str):
 
 
 def reader(root: Path, name: str):
-    return read_file(root / BENCH / "metrics" / f"{name}.py")
-
-
-def read_file(path: Path):
-    """The ``read`` of the metric file at ``path``.  A metric that reads what
-    another reads, under a name of its own, takes that file's ``read``."""
-    spec = importlib.util.spec_from_file_location(f"{BENCH}_metric_{Path(path).stem}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    """The ``read`` of the metric file ``metrics/<name>.py``."""
+    return families.load_file(root / BENCH / "metrics" / f"{name}.py", "metric").read
 
 
 # ---------------------------------------------------------------- serving

@@ -1,8 +1,11 @@
-"""decode.device_ms in the cells whose decode steps the host bounds: the
-same reading, under the name of the end-to-end metric it moves there
-(``tokens_per_s.host_bound``)."""
-from pathlib import Path
+"""Median device ms of a traced decode step (``LM.decode``), in the cells
+whose decode steps the host bounds, under the name of the end-to-end metric
+it moves there (``tokens_per_s.host_bound``)."""
+import statistics
 
-from cardbench.harness import read_file
 
-read = read_file(Path(__file__).with_name("decode.device_ms.py"))
+def read(run):
+    rs = run.trace.of("decode") if run.trace else []
+    if not rs or not any(r.device_s > 0 for r in rs):
+        return None
+    return statistics.median(r.device_s * 1e3 for r in rs)

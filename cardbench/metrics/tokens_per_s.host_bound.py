@@ -1,9 +1,11 @@
-"""tokens_per_s in the cells whose decode steps the host bounds (the card
-idles through most of a step), where the host's speed spreads it between
-processes by 5-9%: the same reading under a name of its own, so that its
-wider bound does not hide a loss in the cells that the card bounds."""
-from pathlib import Path
+"""Prompt tokens prefilled plus tokens generated, over the window's length,
+in the cells whose decode steps the host bounds (the card idles through
+most of a step), where the host's speed spreads it between processes by
+3-7%: a name of its own, so that its wider bound will not hide a loss in a
+cell that the card bounds.  A cell where it spreads more reports it per
+layer, as ``tokens_per_s.unbounded``."""
 
-from cardbench.harness import read_file
 
-read = read_file(Path(__file__).with_name("tokens_per_s.py"))
+def read(run):
+    tokens = sum(r.batch.size * (r.batch.prompt + r.batch.output) for r in run.records)
+    return tokens / run.window_s if run.window_s > 0 else None

@@ -4,22 +4,13 @@ from __future__ import annotations
 
 import dataclasses
 
-from cardbench import weights
+from cardbench import families, weights
 
-# configuration file key -> the program's ModelConfig field, by family
-FIELDS = {
-    "dense": {"num_hidden_layers": "num_layers", "hidden_size": "d_model",
-              "num_attention_heads": "num_heads", "num_key_value_heads": "num_kv_heads",
-              "head_dim": "head_dim", "intermediate_size": "d_ff", "vocab_size": "vocab_size",
-              "rope_theta": "rope_theta", "rms_norm_eps": "norm_eps",
-              "tie_word_embeddings": "tie_embeddings", "torch_dtype": "dtype",
-              "attention_impl": "attention_impl"},
-    "ssm": {"num_hidden_layers": "num_layers", "hidden_size": "d_model",
-            "vocab_size": "vocab_size", "layer_norm_epsilon": "norm_eps",
-            "tie_word_embeddings": "tie_embeddings", "torch_dtype": "dtype"},
-}
-SSM_FIELDS = {"state_size": "d_state", "head_dim": "head_dim", "expand": "expand",
-              "n_groups": "n_groups", "conv_kernel": "conv_width", "chunk_size": "chunk_size"}
+# configuration file key -> the program's ModelConfig field, for every family;
+# each family's module adds its own (families/__init__.py)
+COMMON_FIELDS = {"num_hidden_layers": "num_layers", "hidden_size": "d_model",
+                 "vocab_size": "vocab_size", "tie_word_embeddings": "tie_embeddings",
+                 "torch_dtype": "dtype"}
 
 
 def model_config(cfg):
@@ -30,10 +21,12 @@ def model_config(cfg):
     if base.family != cfg["family"]:
         raise ValueError(f"{cfg['name']}: the program's {base.name} is {base.family}, "
                          f"the file says {cfg['family']}")
-    kw = {field: cfg[key] for key, field in FIELDS[cfg["family"]].items() if key in cfg}
-    if cfg["family"] == "ssm":
-        kw["ssm"] = dataclasses.replace(
-            base.ssm, **{field: cfg[key] for key, field in SSM_FIELDS.items()})
+    fam = families.module(cfg)
+    fields = {**COMMON_FIELDS, **fam.FIELDS}
+    kw = {field: cfg[key] for key, field in fields.items() if key in cfg}
+    for sub, sub_fields in fam.NESTED.items():
+        kw[sub] = dataclasses.replace(
+            getattr(base, sub), **{field: cfg[key] for key, field in sub_fields.items()})
     return dataclasses.replace(base, **kw)
 
 

@@ -31,8 +31,7 @@ def test_a_sound_run_is_correct(tiny_root, cell):
     r = run(tiny_root, cell)
     assert r["correct"], r["checks"]
     assert r["attempted"] == 4 and r["failed"] == 0      # one cycle: 2 batches of 2
-    assert set(r["metrics"]) == {"ttft_ms_p95", "tpot_ms_p95", "tokens_per_s",
-                                 "tokens_per_s.host_bound", "setup_s"}
+    assert set(r["metrics"]) == {"ttft_ms_p95", "tokens_per_s.host_bound", "setup_s"}
     assert list(r)[-1] == "checks"
     assert r["checks"]["max_gap"]["value"] <= r["checks"]["max_gap"]["limit"]
 
@@ -53,8 +52,8 @@ def test_the_same_seed_serves_the_same_tokens(tiny_root):
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_broken_step_is_not_correct(tiny_root, cell, fault):
-    family = harness.load_cell(tiny_root, cell)[1]["family"]
-    with faults.FAULTS[fault](family):
+    cfg = harness.load_cell(tiny_root, cell)[1]
+    with faults.FAULTS[fault](cfg):
         r = run(tiny_root, cell)
     assert not r["correct"]
     assert r["checks"]["max_gap"]["value"] > r["checks"]["max_gap"]["limit"]
@@ -90,12 +89,28 @@ def test_a_cell_from_new_files_alone(tmp_path):
     assert "served_tokens" not in run(root, CELLS[0])["metrics"]
 
 
+@pytest.mark.parametrize("sub", ["families", "reference"])
+def test_a_family_without_its_file_is_refused(tiny_root, sub):
+    """A cell whose family lacks its module or its reference is refused,
+    naming the file; a cell of another family still runs."""
+    (tiny_root / BENCH.name / sub / "ssm.py").unlink()
+    with pytest.raises(harness.Refused, match=f"{BENCH.name}/{sub}/ssm.py") as e:
+        run(tiny_root, "tiny-ssm.tinymix")
+    assert e.value.code != 0
+    assert run(tiny_root, "tiny-dense.tinymix")["correct"]
+
+
 def test_a_traced_run_reports_the_layers_metrics(tiny_root):
     r = run(tiny_root, CELLS[0], trace_on=True)
     assert "busy_s" in r["device"] and "window_s" in r["device"]
     assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
     # on the CPU no device operation runs: the device metrics read nothing
-    assert "decode.device_ms" not in r["metrics"]
+    assert "decode.device_ms.host_bound" not in r["metrics"]
+    assert "decode.device_ms.unbounded" not in r["metrics"]
+    # a twin of an unbounded cell reads what its original reads
+    m = r["metrics"]
+    assert m["decode.host_ms.unbounded"]["value"] == m["decode.host_ms"]["value"]
+    assert m["tokens_per_s.unbounded"]["value"] > 0
 
 
 def test_trace_ranges_take_the_device_time_inside_them():

@@ -7,9 +7,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from cardbench import port, weights
+from cardbench import families, port, weights
 from cardbench.reference import dense, ssm
-from cardbench.tests.tiny import BENCH, tiny_config
+from cardbench.tests.tiny import BENCH, REPO, tiny_config
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro", "repro_torch"}
 
@@ -34,7 +34,7 @@ def serve(lm, prompts, gen):
 
 @pytest.mark.parametrize("name,ref", [("tiny-dense", dense), ("tiny-ssm", ssm)])
 def test_reference_matches_the_program(name, ref):
-    cfg = tiny_config(name)
+    cfg = families.at_root(tiny_config(name), REPO)
     w = weights.draw(cfg, 7, "cpu")
     lm = port.build(cfg, w)
     B, S, gen = 2, 40, 6         # the ssm's chunk of 16 splits S into 3 chunks

@@ -6,21 +6,22 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from cardbench import yardstick
+from cardbench import families, yardstick
 
-CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+BENCH = Path(__file__).resolve().parents[1]
 
 
 def config(name):
-    return json.loads((CONFIGS / f"{name}.json").read_text())
+    return families.at_root(json.loads((BENCH / "configs" / f"{name}.json").read_text()),
+                            BENCH.parent)
 
 
 def test_internlm2_prefill_token():
     # per layer: wq and wo 2 x 2048 x 2048, wk and wv 2 x 2048 x 1024, the
     # SwiGLU 3 x 2048 x 8192 = 62.9M weights; x 24 layers x 2 = 3.02 GFLOP
     cfg = config("internlm2-1.8b")
-    assert yardstick.matmul_params_per_layer(cfg) == 62_914_560
-    per_token = 2 * yardstick.matmul_params_per_layer(cfg) * cfg["num_hidden_layers"]
+    assert families.module(cfg).projection_params(cfg) == 62_914_560 * cfg["num_hidden_layers"]
+    per_token = 2 * families.module(cfg).projection_params(cfg)
     assert per_token / 1e9 == pytest.approx(3.02, abs=0.005)
 
 
@@ -43,7 +44,8 @@ def test_mamba2_token():
     # per layer: in_proj 2048 x (2 x 4096 + 2 x 128 + 64), out_proj 4096 x
     # 2048 = 25.8M weights; x 48 layers x 2 = 2.48 GFLOP
     cfg = config("mamba2-1.3b")
-    per_token = 2 * yardstick.matmul_params_per_layer(cfg) * cfg["num_hidden_layers"]
+    assert families.module(cfg).projection_params(cfg) == 25_821_184 * cfg["num_hidden_layers"]
+    per_token = 2 * families.module(cfg).projection_params(cfg)
     assert per_token / 1e9 == pytest.approx(2.48, abs=0.005)
 
 

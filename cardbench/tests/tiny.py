@@ -1,6 +1,6 @@
 """A cut-down checkout for the CPU tests: the benchmark's own metric
-readers, and configuration, traffic and limit files at a tiny size, with a
-BENCHMARK.json that names them."""
+readers, families and references, and configuration, traffic and limit
+files at a tiny size, with a BENCHMARK.json that names them."""
 import json
 import shutil
 import sys
@@ -34,7 +34,8 @@ def tiny_config(name):
 
 def make_root(root: Path):
     bench = root / BENCH.name
-    shutil.copytree(BENCH / "metrics", bench / "metrics")
+    for sub in ("metrics", "families", "reference"):
+        shutil.copytree(BENCH / sub, bench / sub, ignore=shutil.ignore_patterns("__pycache__"))
     for sub in ("configs", "traffic", "limits"):
         (bench / sub).mkdir(parents=True)
     (bench / "traffic" / "tinymix.json").write_text(json.dumps(MIX))

@@ -5,13 +5,16 @@ Frozen here so that a change to the program cannot move it.  The K1 and K2
 counts are copies of the counts the port's ``chip_smoke.py`` used when the
 benchmark was written (``_k1_work``, ``_k2_work``, ``_bound`` and the work
 functions they call), and the peaks are NVIDIA's data-sheet numbers.  Model
-FLOPs count every matrix product of a step, attention's score and value
-products and the SSD's chunked products included, from the configuration
-file and the request's lengths alone.
+FLOPs count every matrix product of a step, the sequence mixer's included
+(each family's module gives its projections and its mixer's products,
+``families/__init__.py``), from the configuration file and the request's
+lengths alone.
 """
 from __future__ import annotations
 
 import math
+
+from cardbench import families
 
 # NVIDIA's data sheets, dense rates without sparsity, at the full power limit.
 PEAKS = {
@@ -62,44 +65,14 @@ def k2_work(B, H, S, P, G, N, *, x_itemsize=2, dt_itemsize=4, Q=256):
 
 
 # ------------------------------------------------------------- model steps
-def _attention_shape(cfg):
-    """(q heads, kv heads, head size) of an attention layer of ``cfg``."""
-    H = cfg["num_attention_heads"]
-    return H, cfg["num_key_value_heads"], cfg.get("head_dim", cfg["hidden_size"] // H)
-
-
-def _ssm_shape(cfg):
-    """(d_inner, heads, head size, groups, state size) of a Mamba-2 layer."""
-    di = cfg["expand"] * cfg["hidden_size"]
-    P = cfg["head_dim"]
-    return di, di // P, P, cfg["n_groups"], cfg["state_size"]
-
-
-def matmul_params_per_layer(cfg) -> int:
-    """Weights of one layer that multiply every token (the projections)."""
-    D = cfg["hidden_size"]
-    if cfg["family"] == "dense":
-        H, K, hd = _attention_shape(cfg)
-        return D * H * hd * 2 + D * K * hd * 2 + 3 * D * cfg["intermediate_size"]
-    if cfg["family"] == "ssm":
-        di, nh, _, G, N = _ssm_shape(cfg)
-        return D * (2 * di + 2 * G * N + nh) + di * D
-    raise ValueError(f"no FLOP count for family {cfg['family']!r}")
-
-
 def prefill_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one prefill of ``batch`` prompts of ``seq`` tokens:
     2 x the projections' weights a token, the head at the last position
-    only, plus attention's causal score and value products (dense) or the
-    SSD's chunked products (ssm), every layer."""
-    D, V, L = cfg["hidden_size"], cfg["vocab_size"], cfg["num_hidden_layers"]
-    per_seq = 2 * matmul_params_per_layer(cfg) * L * seq + 2 * D * V
-    if cfg["family"] == "dense":
-        H, K, hd = _attention_shape(cfg)
-        per_seq += L * k1_work(1, H, K, seq, seq, hd)[0]
-    else:
-        _, nh, P, G, N = _ssm_shape(cfg)
-        per_seq += L * k2_work(1, nh, seq, P, G, N, Q=cfg["chunk_size"])[0]
+    only, plus the sequence mixer's products (attention's causal score and
+    value products, the SSD's chunked products), every layer."""
+    fam = families.module(cfg)
+    D, V = cfg["hidden_size"], cfg["vocab_size"]
+    per_seq = 2 * fam.projection_params(cfg) * seq + 2 * D * V + fam.mixer_flops(cfg, seq)
     return float(batch * per_seq)
 
 
