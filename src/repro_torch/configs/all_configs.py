@@ -10,8 +10,10 @@ from repro_torch.configs import (  # noqa: F401
     llava_next_34b,
     whisper_medium,
     jamba15_large_398b,
+    granite4_h_small,
 )
 
+# the architectures the JAX package has a twin of (granite-4.0-h-small has none)
 ARCH_IDS = [
     "gemma3-4b",
     "qwen1.5-32b",

@@ -25,9 +25,24 @@ class MoEConfig:
     offset: int = 0
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
+    # a shared SwiGLU expert of this width beside the routed ones (0: none)
+    d_ff_shared: int = 0
+    # the experts this device holds, [first_held, first_held + held) of
+    # num_experts.  held > 0 takes the held path: the router scores all of
+    # them, and every pair of a held one is computed here, with no capacity
+    # (one device's share of an expert-parallel deployment, with no
+    # exchange).  held 0: the capacity paths over all experts.
+    held: int = 0
+    first_held: int = 0
 
     def is_moe_layer(self, layer_idx: int) -> bool:
         return layer_idx % self.every == self.offset % self.every
+
+    @property
+    def held_range(self) -> tuple:
+        """(first, end) of the experts held here."""
+        n = self.held or self.num_experts
+        return self.first_held, self.first_held + n
 
 
 @dataclass(frozen=True)
@@ -108,6 +123,21 @@ class ModelConfig:
     remat: str = "dots"            # none | dots | full
     source: str = ""               # provenance tag [source; tier]
 
+    # --- scalars of Granite 4.0's layer (granitemoehybrid) -----------------
+    # Each default leaves the model as it was.  They are kept out of the
+    # repr, so that a config that leaves them at their defaults prints as it
+    # did before they existed.
+    # the embedding is multiplied by this (None: sqrt(d_model))
+    embedding_multiplier: Optional[float] = field(default=None, repr=False)
+    # each sub-layer's output is multiplied by this before the residual add
+    residual_multiplier: float = field(default=1.0, repr=False)
+    # the logits are divided by this
+    logits_scaling: float = field(default=1.0, repr=False)
+    # the attention's softmax scale (None: 1/sqrt(head_dim))
+    attention_multiplier: Optional[float] = field(default=None, repr=False)
+    # rotary positions in attention; False: none (NoPE)
+    rope: bool = field(default=True, repr=False)
+
     # ------------------------------------------------------------------ api
     @property
     def q_dim(self) -> int:
@@ -160,8 +190,10 @@ class ModelConfig:
                 continue  # pure-SSM blocks have no separate FFN
             if self.is_moe_layer(i):
                 m = self.moe
+                lo, hi = m.held_range
                 n += D * m.num_experts                         # router
-                n += m.num_experts * 3 * D * m.d_ff_expert     # swiglu experts
+                n += (hi - lo) * 3 * D * m.d_ff_expert         # swiglu experts held
+                n += 3 * D * m.d_ff_shared                     # shared expert
             else:
                 n += 3 * D * self.d_ff                         # swiglu dense
         if self.encoder is not None:
@@ -176,14 +208,17 @@ class ModelConfig:
         return n
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: top_k of num_experts)."""
+        """Active params per token (MoE: top_k of num_experts, of which the
+        held share is computed here)."""
         if self.moe is None:
             return self.param_count()
         m = self.moe
         total = self.param_count()
         moe_layers = sum(1 for i in range(self.num_layers) if self.is_moe_layer(i))
-        all_expert = moe_layers * m.num_experts * 3 * self.d_model * m.d_ff_expert
-        active_expert = moe_layers * m.top_k * 3 * self.d_model * m.d_ff_expert
+        lo, hi = m.held_range
+        all_expert = moe_layers * (hi - lo) * 3 * self.d_model * m.d_ff_expert
+        active_expert = (moe_layers * m.top_k * (hi - lo) * 3 * self.d_model
+                         * m.d_ff_expert // m.num_experts)
         return total - all_expert + active_expert
 
     def _ssm_params(self) -> int:
@@ -198,7 +233,8 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Tiny same-topology config for CPU smoke tests."""
         kw = dict(
-            num_layers=min(self.num_layers, 4 if self.hybrid is None else 8),
+            # a hybrid stack keeps one whole period
+            num_layers=min(self.num_layers, 4 if self.hybrid is None else self.hybrid.attn_period),
             d_model=64,
             num_heads=4,
             num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads < self.num_heads else 4,
@@ -212,8 +248,12 @@ class ModelConfig:
             remat="none",
         )
         if self.moe is not None:
-            kw["moe"] = replace(self.moe, num_experts=min(self.moe.num_experts, 8),
-                                top_k=min(self.moe.top_k, 2), d_ff_expert=64)
+            m = self.moe
+            E = min(m.num_experts, 8)
+            kw["moe"] = replace(m, num_experts=E, top_k=min(m.top_k, 2), d_ff_expert=64,
+                                d_ff_shared=128 if m.d_ff_shared else 0,
+                                held=m.held * E // m.num_experts,
+                                first_held=m.first_held * E // m.num_experts)
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk_size=16)
         if self.encoder is not None:

@@ -29,6 +29,12 @@ Design notes
   ``attn_offset`` of a group is attention, the others Mamba-2 mixers, each
   followed by a dense or MoE FFN.  Its cache is ``attn`` k/v [G,B,S,K,hd],
   ``ssm`` [G,per-1,B,H,P,N] and ``conv`` [G,per-1,B,W-1,C].
+  granite-4.0-h-small is such a stack with an MoE FFN after every layer
+  (a shared expert beside the routed ones, no capacity: ``moe_ffn_held``),
+  attention without RoPE (``cfg.rope``) at softmax scale
+  ``cfg.attention_multiplier``, and Granite's scalars: the embedding times
+  ``embedding_multiplier``, each sub-layer's output times
+  ``residual_multiplier``, the logits divided by ``logits_scaling``.
 * The enc-dec family (whisper) runs a non-causal encoder tower over
   ``enc_embeds`` and a cross-attention after each decoder self-attention;
   the cross K/V are computed once at prefill and cached as
@@ -119,14 +125,23 @@ def _mlp_specs(cfg):
 
 
 def _moe_specs(cfg):
+    """The router over all experts, the held experts' weights and, with
+    ``d_ff_shared``, the shared expert's."""
     D, m = cfg.d_model, cfg.moe
     E, F = m.num_experts, m.d_ff_expert
-    return {
+    lo, hi = m.held_range
+    s = {
         "router": ParamSpec((D, E), ("embed", "experts")),
-        "w_gate": ParamSpec((E, D, F), ("experts", "embed", "expert_mlp")),
-        "w_up": ParamSpec((E, D, F), ("experts", "embed", "expert_mlp")),
-        "w_down": ParamSpec((E, F, D), ("experts", "expert_mlp", "embed")),
+        "w_gate": ParamSpec((hi - lo, D, F), ("experts", "embed", "expert_mlp")),
+        "w_up": ParamSpec((hi - lo, D, F), ("experts", "embed", "expert_mlp")),
+        "w_down": ParamSpec((hi - lo, F, D), ("experts", "expert_mlp", "embed")),
     }
+    if m.d_ff_shared:
+        Fs = m.d_ff_shared
+        s["w_shared_gate"] = ParamSpec((D, Fs), ("embed", "mlp"))
+        s["w_shared_up"] = ParamSpec((D, Fs), ("embed", "mlp"))
+        s["w_shared_down"] = ParamSpec((Fs, D), ("mlp", "embed"))
+    return s
 
 
 def _ssm_specs(cfg):
@@ -385,6 +400,16 @@ class LM(nn.Module):
     def _head(self):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
+    def _residual(self, x, h):
+        """``x`` plus a sub-layer's output ``h``, times ``residual_multiplier``."""
+        m = self.cfg.residual_multiplier
+        return x + (h if m == 1.0 else h * m)
+
+    def _scaled(self, logits):
+        """The logits divided by ``logits_scaling``."""
+        s = self.cfg.logits_scaling
+        return logits if s == 1.0 else logits / s
+
     def _attn(self, x, p, *, window, theta, causal=True, cache=None, pos=None,
               cross_kv=None, prefill_kv_dtype=None):
         """Attention sub-layer.  Exactly one cache mode:
@@ -392,11 +417,13 @@ class LM(nn.Module):
           prefill_kv_dtype -> prefill (emit a fresh cache of the seq length)
           neither          -> plain training attention
         ``cross_kv`` ({"k", "v"} from the encoder) makes it a cross-attention
-        (no RoPE, non-causal, dot).
+        (no RoPE, non-causal, dot).  With ``cfg.rope`` False no attention
+        has RoPE; ``cfg.attention_multiplier`` is the softmax scale.
         Returns (out [B,S,D], new_cache_entry_or_None).
         """
         with named_scope("attention"):
             cfg, plan = self.cfg, self.plan
+            scale = cfg.attention_multiplier
             B, S, D = x.shape
             q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
             if "bq" in p:
@@ -405,7 +432,7 @@ class LM(nn.Module):
                 q = plan.act(q, "batch", "seq", "q_heads", "head_dim")
                 out = attn_mod.attention(
                     q, *self._kv_for_sharded_q(cross_kv["k"], cross_kv["v"]), impl="dot",
-                    causal=False, window=None, chunk=cfg.attention_chunk)
+                    causal=False, window=None, chunk=cfg.attention_chunk, softmax_scale=scale)
                 return self._sublayer_out(torch.einsum("bshk,hkd->bsd", out, p["wo"])), None
 
             # train and prefill: widen the replicated kv weights so that each
@@ -435,12 +462,13 @@ class LM(nn.Module):
             if widened and k_rep > 1:
                 k, v = (self._widen(t, 2, k_rep, ("batch", "seq", "q_heads", "head_dim"))
                         for t in (k, v))
-            if pos is None:
-                positions = torch.arange(S, device=x.device)[None, :]
-            else:
-                positions = torch.full((B, 1), pos, device=x.device)
-            q = apply_rope(q, positions, theta)
-            k = apply_rope(k, positions, theta)
+            if cfg.rope:
+                if pos is None:
+                    positions = torch.arange(S, device=x.device)[None, :]
+                else:
+                    positions = torch.full((B, 1), pos, device=x.device)
+                q = apply_rope(q, positions, theta)
+                k = apply_rope(k, positions, theta)
             q = plan.act(q, "batch", "seq", "q_heads", "head_dim")
 
             new_cache = None
@@ -468,12 +496,13 @@ class LM(nn.Module):
                 out = attn_mod.attention(
                     q, cache["k"], cache["v"], impl="dot", causal=False,
                     window=window, q_offset=pos, kv_valid_len=pos + 1,
-                    k_scale=k_scale, v_scale=v_scale, chunk=cfg.attention_chunk)
+                    k_scale=k_scale, v_scale=v_scale, chunk=cfg.attention_chunk,
+                    softmax_scale=scale)
             else:
                 out = attn_mod.attention(
                     q, *((k, v) if widened else self._kv_for_sharded_q(k, v)),
                     impl=cfg.attention_impl, causal=causal,
-                    window=window, chunk=cfg.attention_chunk)
+                    window=window, chunk=cfg.attention_chunk, softmax_scale=scale)
                 if prefill_kv_dtype is not None:
                     if widened:
                         k, v = (self._kv_cache_of(t, B) for t in (k, v))
@@ -626,7 +655,7 @@ class LM(nn.Module):
             return {"logits": self._logits(x, last=True), "cache": new_cache}
 
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = torch.einsum("bsd,dv->bsv", x, self._head())
+        logits = self._scaled(torch.einsum("bsd,dv->bsv", x, self._head()))
         out = {"aux_loss": aux}
         if labels is not None:
             n_img = x.shape[1] - tokens.shape[1]
@@ -645,7 +674,7 @@ class LM(nn.Module):
         with named_scope("head"):
             x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
             logits = torch.einsum("bsd,dv->bsv", x[:, -1:] if last else x, self._head())
-            return self._mask_vocab(logits)
+            return self._mask_vocab(self._scaled(logits))
 
     def _mask_vocab(self, logits):
         v_real = self.cfg.vocab_size
@@ -656,7 +685,8 @@ class LM(nn.Module):
     def _embed_inputs(self, tokens, embeds_prefix=None):
         with named_scope("embed"):
             x = F.embedding(tokens, self.embed)
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+            m = self.cfg.embedding_multiplier
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model) if m is None else m, dtype=x.dtype)
             if embeds_prefix is not None:
                 x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
             return self.plan.act(x, "batch", "seq", "embed")
@@ -705,7 +735,7 @@ class LM(nn.Module):
         def layer(x, blk, h0, conv0):
             h, states = ssm_mod.mamba_block(rms_norm(x, blk.ln, cfg.norm_eps), blk.mamba,
                                             cfg, h0=h0, conv0=conv0, decode=decode)
-            return x + self._sublayer_out(h), states
+            return self._residual(x, self._sublayer_out(h)), states
 
         for i, blk in enumerate(self.blocks):
             with named_scope("layer", i=i):
@@ -736,7 +766,7 @@ class LM(nn.Module):
         h, new_c = self._attn(
             rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn, window=window, theta=theta,
             cache=cache, pos=pos, prefill_kv_dtype=prefill_kv_dtype)
-        x = x + h
+        x = self._residual(x, h)
         new_cross = None
         if cfg.encoder is not None:
             cp = self.cross[i]
@@ -748,10 +778,10 @@ class LM(nn.Module):
                 new_cross = kv if prefill_kv_dtype is not None else None
             h, _ = self._attn(rms_norm(x, cp.ln, cfg.norm_eps), cp.attn, window=None,
                               theta=cfg.rope_theta, cross_kv=kv)
-            x = x + h
+            x = self._residual(x, h)
         y, aux = self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), getattr(blk, blk.ffn_name),
                            is_moe=blk.ffn_name == "moe")
-        return plan.act(x + y, "batch", "seq", "embed"), new_c, new_cross, aux
+        return plan.act(self._residual(x, y), "batch", "seq", "embed"), new_c, new_cross, aux
 
     def _stack_attn(self, x, cache=None, enc_out=None, pos=None, prefill_kv_dtype=None):
         is_encdec = self.cfg.encoder is not None
@@ -837,7 +867,7 @@ class LM(nn.Module):
                 states.append(h_new)
                 convs.append(conv_new)
                 mamba_i += 1
-            x = x + self._sublayer_out(h)
+            x = self._residual(x, self._sublayer_out(h))
             xf = rms_norm(x, grp.ln_ffn[i], cfg.norm_eps)
             if cfg.is_moe_layer(i):
                 y, aux = self._ffn(xf, grp.moe[moe_i], is_moe=True)
@@ -846,7 +876,7 @@ class LM(nn.Module):
             else:
                 y, _ = self._ffn(xf, grp.dense_ffn[dense_i], is_moe=False)
                 dense_i += 1
-            x = self.plan.act(x + y, "batch", "seq", "embed")
+            x = self.plan.act(self._residual(x, y), "batch", "seq", "embed")
         return x, aux_total / per, (attn_c, states, convs)
 
     # -------------------------------------------------------------- decode

@@ -15,6 +15,26 @@
             ``shard_map`` runs it, on DTensors' local shards, with the
             collectives of the JAX package issued as functional
             collectives over the mesh's axes.
+``held``    a config with ``held`` experts (``moe_ffn_held``, which
+            the JAX package has no twin of): one device's share of an
+            expert-parallel layer, with no capacity.  The router scores
+            every expert; only the (token, expert) pairs of the experts
+            held here are computed, and every one of them is.  Up to
+            ``SLOT_TOKENS`` tokens (decode) each held expert gets one slot
+            a token, so the shapes are fixed and the host reads nothing
+            back; above it the held pairs are sorted by expert, and each
+            expert gathers its own rows and runs its products on them (one
+            device-to-host read of the experts' counts a layer).
+
+A config's shared expert (``d_ff_shared``) is a SwiGLU that every token
+takes, added to the routed output.  ``moe_ffn`` is one ``moe`` span
+(``core.scope``); in the held path it holds ``router``, ``dispatch``,
+``experts``, ``combine`` and ``shared`` spans and notes ``held``, ``pairs``
+(the pairs the experts computed: the rows they took, or the slots the
+combine weighs), ``dropped`` (the router's pairs of held experts less
+``pairs``) and
+``copy_bytes`` (what the gather, the casts and the scatter write outside
+the expert products).
 
 All are plain PyTorch: the JAX package computes the dispatch in jnp, with
 no Pallas kernel.
@@ -25,8 +45,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.core.scope import named_scope
+from repro_torch.core.scope import current_scopes, named_scope
+from repro_torch.models.layers import swiglu
 from repro_torch.sharding.plan import per_shard
+
+# the held path's slot layout up to this many tokens, the sorted one above.
+# The slots read every held expert's weights once, with fixed shapes and no
+# read by the host; their extra rows cost little while an expert's products
+# stay bound by its weights' bytes (on an H100 up to ~295 rows, its FLOP/s
+# over its bytes/s).  The sorted layout reads the counts back and launches
+# some nine kernels a busy expert: on granite-4.0-h-small's decode (4
+# tokens, 36 experts held) its step took twice the slots' (H100, 700 W).
+SLOT_TOKENS = 64
 
 
 def router_probs(x2d, w_router):
@@ -267,13 +297,113 @@ def moe_ffn_sharded(x, params, moe: MoEConfig, plan, gather_mode="auto"):
     return y, aux
 
 
+def moe_ffn_held(x, params, moe: MoEConfig):
+    """The held path (one device, no capacity).  x [B,S,D] -> ([B,S,D],
+    aux_loss); ``params["w_gate"]`` etc. hold the experts
+    ``moe.held_range``, the router all ``moe.num_experts``."""
+    B, S, D = x.shape
+    T, E, k = B * S, moe.num_experts, moe.top_k
+    lo, hi = moe.held_range
+    if params["w_gate"].shape[0] != hi - lo:
+        raise ValueError(f"{params['w_gate'].shape[0]} experts' weights for the held "
+                         f"range [{lo}, {hi})")
+    xt = x.reshape(T, D)
+    with named_scope("router"):
+        probs = router_probs(xt, params["router"])
+        gates, eidx = _topk_gates(probs, k)
+        aux = load_balance_loss(probs, eidx, E)
+    held = (eidx >= lo) & (eidx < hi)
+    layout = _held_slots if T <= SLOT_TOKENS else _held_sorted
+    y, routed, pairs, copy = layout(xt, gates, eidx - lo, held, params)
+    sp = named_scope("moe")
+    if "moe" in current_scopes() and sp.recording:     # the open "moe" span's counters
+        if torch.is_tensor(pairs):      # the host's read, made only while recorded
+            routed, pairs = torch.stack([routed, pairs]).tolist()
+        sp.note(held=hi - lo, pairs=pairs, dropped=routed - pairs, copy_bytes=copy)
+    return y.reshape(B, S, D), aux
+
+
+def _held_slots(xt, gates, e_loc, held, params):
+    """The slot layout: each held expert runs every token, token t in its
+    slot t, and the combine weighs slot t by the gate of t's pair with that
+    expert (0 where t did not choose it).  Returns (y [T,D], the router's
+    held pairs and the slots the combine weighs, both on the device, copy
+    bytes)."""
+    T, D = xt.shape
+    H = params["w_gate"].shape[0]
+    tok = torch.arange(T, device=xt.device)[:, None].expand_as(e_loc)
+    with named_scope("dispatch"):
+        e_slot = torch.where(held, e_loc, H)                   # row H: the other experts
+        gate_buf = torch.zeros((H + 1, T), dtype=torch.float32, device=xt.device)
+        gate_buf[e_slot, tok] = torch.where(held, gates, 0.0)
+        rows = xt[None].expand(H, T, D)                        # a view: no gather
+    out = _expert_swiglu(rows, params)                         # [H, T, D]
+    with named_scope("combine"):
+        y = torch.einsum("ht,htd->td", gate_buf[:H], out.float()).to(xt.dtype)
+    # written: out in f32, y in f32 and its cast
+    return (y, held.sum(), (gate_buf[:H] != 0).sum(),
+            out.numel() * 4 + T * D * (4 + xt.element_size()))
+
+
+def _held_sorted(xt, gates, e_loc, held, params):
+    """The sorted layout: the held pairs sorted by expert (stable, so by
+    token within an expert), and for each expert its rows gathered, its
+    products and its gated outputs added in float32 (an expert's rows are
+    distinct tokens, so each add has its own row and the order of the sum
+    is fixed).  Returns (y [T,D], the router's held pairs, the rows the
+    experts took, copy bytes)."""
+    T, D = xt.shape
+    k = e_loc.shape[1]
+    H = params["w_gate"].shape[0]
+    with named_scope("dispatch"):
+        key = torch.where(held, e_loc, H).reshape(-1)
+        order = torch.argsort(key, stable=True)
+        counts = torch.bincount(key, minlength=H + 1)[:H].tolist()   # read by the host
+        n = sum(counts)
+        tok = order[:n] // k
+        g = gates.reshape(-1)[order[:n]][:, None]
+    acc = torch.zeros((T, D), dtype=torch.float32, device=xt.device)
+    at = taken = 0
+    for h, c in enumerate(counts):
+        if c:
+            with named_scope("dispatch"):
+                r = xt[tok[at:at + c]]
+            with named_scope("experts"):
+                a = F.silu((r @ params["w_gate"][h]).float()).to(r.dtype)
+                o = (a * (r @ params["w_up"][h])) @ params["w_down"][h]
+            with named_scope("combine"):
+                acc.index_add_(0, tok[at:at + c], o * g[at:at + c])   # gated in float32
+            taken += o.shape[0]
+        at += c
+    with named_scope("combine"):
+        y = acc.to(xt.dtype)
+    # written: the gathered rows, the gated outputs, the sum, its cast
+    return y, n, taken, n * D * (xt.element_size() + 4 + 4) + T * D * xt.element_size()
+
+
 def moe_ffn(x, params, moe: MoEConfig, plan=None, impl="auto", gather_mode="auto"):
-    """impl "auto" or "sharded": the expert-parallel path when the plan's
-    mesh is distributed, else the index path (one device); "dense": the
-    oracle."""
+    """impl "auto" or "sharded": the held path for a config with ``held``
+    experts (one device), else the expert-parallel path
+    when the plan's mesh is distributed, else the index path (one device);
+    "dense": the oracle.  A shared expert's output is added to the routed
+    one.  One ``moe`` span."""
+    with named_scope("moe"):
+        y, aux = _routed(x, params, moe, plan, impl, gather_mode)
+        if "w_shared_gate" in params:
+            with named_scope("shared"):
+                y = y + swiglu(x, params["w_shared_gate"], params["w_shared_up"],
+                               params["w_shared_down"])
+        return y, aux
+
+
+def _routed(x, params, moe, plan, impl, gather_mode):
     if impl == "dense":
         return moe_ffn_dense(x, params, moe)
     if impl in ("auto", "sharded"):
+        if moe.held:
+            if plan is not None and plan.info.distributed:
+                raise NotImplementedError("the held MoE path runs on one device")
+            return moe_ffn_held(x, params, moe)
         if plan is not None and plan.info.distributed:
             return moe_ffn_sharded(x, params, moe, plan, gather_mode=gather_mode)
         return moe_ffn_index(x, params, moe)
