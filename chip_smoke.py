@@ -31,16 +31,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    24,577 keys; B 64, 1,088 keys), those again with peaked scores (q at the
    std the model's init gives it), and at the other head dims, query groups,
    windows and types it takes, against its plain version and the dot path
-   it replaces (3e-2, each output row within 3e-2 of its own norm); then
-   timed at the two cells' shapes beside its bound (the k and v bytes it
-   reads over 3.35 TB/s), the dot path, its plain version and SDPA
-   (``library_ms``, a yardstick the port never calls), with a sweep of the
-   split count; the ``k3`` JSON line gives the numbers;
+   it replaces (3e-2, each output row within 3e-2 of its own norm), and at
+   the two cells' shapes again in the form a replayed decode step launches
+   (the valid length one int64 on the card, the grid cut over all S keys,
+   the splits past the length empty); then timed at the two cells' shapes
+   beside its bound (the k and v bytes it reads over 3.35 TB/s), the dot
+   path, its plain version and SDPA (``library_ms``, a yardstick the port
+   never calls), with a sweep of the split count and the replayed form at
+   a capacity of S and of the valid length + 15; the ``k3`` JSON line
+   gives the numbers;
 4. serve: ``repro_torch.launch.serve`` on internlm2-1.8b at full width
    (24 layers, seeded random bf16 weights), batch 4, prompt 1024, 32 new
    tokens, flash prefill; count the kernel launches of that run by variant
-   (24 K1 "wg"; K3's split kernel 24 a decode step, and its combine kernel
-   24 or none), check the logits, prefill->decode consistency, and
+   (24 K1 "wg"; K3's split kernel called 24 times in each decode step run
+   eagerly or captured as a CUDA graph, its combine kernel as often or
+   never, and the replays, which call no wrapper, counted apart), check the logits, prefill->decode consistency, and
    flash against dot prefill;
 5. serve, SSM: the same entry point on mamba2-1.3b at full width (48
    layers), batch 4, prompt 1024, 32 new tokens; every prefill layer's SSD
@@ -508,6 +513,33 @@ def check_time_k3():
                             splits=splits)
         log(f"K3 {name}: {json.dumps(checks[name])}")
         del q, k, v, dot, plain, out
+    # the form a replayed decode step launches: the valid length one int64 on
+    # the card, the grid cut over the cache's capacity (here S)
+    for i, (name, (B, S, valid, H, K, hd)) in enumerate(K3_CELL_SHAPES.items()):
+        for peaked in (False, True):
+            label = f"{name}{' peaked' if peaked else ''} device length"
+            q, k, v = _k3_inputs(B, S, H, K, hd, torch.bfloat16, seed=80 + 2 * i + peaked,
+                                 q_std=K3_PEAKED_Q_STD if peaked else 1.0)
+            n = torch.tensor([valid], device="cuda")
+            kw = dict(causal=False, q_offset=n - 1, kv_valid_len=n)   # as LM.decode passes them
+            why = ta.k3_refusal(q, k, v, impl="dot", **kw)
+            if why is not None:
+                fail(f"K3 {label}: the rule refuses it ({why})")
+            _, splits, chunk = da._split(B, H, K, S, sms)
+            before = da.decode_attention.launches
+            out = ta.attention(q, k, v, impl="dot", **kw)
+            torch.cuda.synchronize()
+            if da.decode_attention.launches != before + (1 if splits == 1 else 2):
+                fail(f"K3 {label}: {da.decode_attention.launches - before} launches, want "
+                     f"{1 if splits == 1 else 2} ({splits} splits)")
+            dot = ta._attention_dot(q, k, v, causal=False, q_offset=valid - 1,
+                                    kv_valid_len=valid)
+            plain = da.decode_attention_plain(q, k, v, lo=0, hi=S, valid=n)
+            checks[label] = dict(_hold(f"K3 {label}", [(out, dot), (out, plain)], K3_TOL,
+                                       rows=True),
+                                 splits=splits, splits_used=-(-valid // chunk))
+            log(f"K3 {label}: {json.dumps(checks[label])}")
+            del q, k, v, dot, plain, out
     cells = {}
     for name, (B, S, valid, H, K, hd) in K3_CELL_SHAPES.items():
         q, k, v = _k3_inputs(B, S, H, K, hd, torch.bfloat16, seed=60)
@@ -529,6 +561,14 @@ def check_time_k3():
         t["tb_per_s"] = nbytes / t["device_ms"] / 1e9
         t["split_sweep"] = {n: _device_ms(lambda: da._launch(q, k, v, lo=0, hi=valid, splits=n))
                             for n in K3_SPLIT_SWEEP[name]}
+        # the replayed step's form, the grid over a capacity: the shape's S,
+        # and a batch's cache (the valid length and at most 15 tokens more)
+        n = torch.tensor([valid], device="cuda")
+        t["device_length"] = {}
+        for cap in sorted({S, min(S, valid + 15)}):
+            ms = _device_ms(lambda cap=cap: da.decode_attention(q, k, v, lo=0, hi=cap, valid=n))
+            t["device_length"][f"capacity {cap}"] = dict(
+                splits=da._split(B, H, K, cap, sms)[1], device_ms=ms, bound_share=bound_ms / ms)
         cells[name] = t
         log(f"K3 at {name}: {json.dumps(t)}")
         del q, k, v, qh, kh, vh
@@ -721,8 +761,13 @@ def k2_rounding(x, dt, A, Bi, Ci, y_wg, tol):
 
 
 def run_serve():
-    """The port's main path, with the kernel launch counts read around it."""
+    """The port's main path, with the kernel launch counts read around it:
+    K3's are its wrapper's calls, in the eager and the captured decode steps
+    (a replay calls no wrapper), and the replays are counted apart."""
+    from repro_torch.models import decode_graph
+    steps_before = dict(decode_graph.COUNTS)
     res, counts, by_variant = _serve_counted(SERVE_ARGS)
+    ran = {how: decode_graph.COUNTS[how] - steps_before[how] for how in steps_before}
     launches = counts["K1"]
     cfg = res.lm.cfg
     log(f"serve: {cfg.name} L={cfg.num_layers} D={cfg.d_model} H={cfg.num_heads} "
@@ -734,12 +779,16 @@ def run_serve():
         fail(f"launches {counts} {by_variant} in the internlm2 serve run, want K1 "
              f"{cfg.num_layers} on wgmma (\"wg\", one per layer of the prefill) and K2 0")
     k3 = _k3_launches()
-    steps = (GEN - 1) * cfg.num_layers
-    log(f"serve: K3 launches {k3} over {GEN - 1} decode steps of {cfg.num_layers} layers")
-    if k3["split"] != steps or k3["combine"] not in (0, steps):
-        fail(f"K3 launches {k3} in the internlm2 serve run, want the split kernel once per "
-             f"layer of each decode step ({steps}) and the combine kernel as often or never")
-    by_variant["K3"] = k3
+    called = (ran["eager"] + ran["capture"]) * cfg.num_layers
+    log(f"serve: K3 calls {k3} over the {ran['eager']} eager and {ran['capture']} captured "
+        f"of {GEN - 1} decode steps of {cfg.num_layers} layers; {ran['replay']} replays")
+    if sum(ran.values()) != GEN - 1 or ran["replay"] == 0:
+        fail(f"decode steps {ran} in the internlm2 serve run, want {GEN - 1} with replays")
+    if k3["split"] != called or k3["combine"] not in (0, called):
+        fail(f"K3 calls {k3} in the internlm2 serve run, want the split kernel once per "
+             f"layer of each eager or captured step ({called}) and the combine kernel as "
+             f"often or never")
+    by_variant["K3"] = {**k3, "decode_steps": ran}
     return res, launches, by_variant
 
 

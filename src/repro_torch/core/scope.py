@@ -17,7 +17,12 @@ with ``time.time_ns()`` inside that range, and on exit appends a
 so a span can be laid beside the device's operations (:func:`attribute`).
 A span never synchronises the card.  Attributes (``named_scope("decode",
 pos=7)``, or ``scope.note(...)`` while ``scope.recording``) are kept only
-on recorded spans; compute the costly ones only while recording.
+on recorded spans; compute the costly ones only while recording.  A count
+that lives on the device is noted with ``scope.note_later(...)`` and read
+by the host at :func:`settle`, which runs when the thread's outermost scope
+closes and which ``LM.decode`` calls after its step: a CUDA graph being
+captured allows no read by the host, and its values exist only once the
+graph has run.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ _spans: list = []
 _dropped = [0]
 _ids = itertools.count(1)
 _plain: dict = {}
+_pending: list = []      # (attrs, {name: device tensor}, finish) of notes not yet read
 
 
 def _state() -> _State:
@@ -78,6 +84,15 @@ class _Scope:
         for tag, _, _, kept, _, _ in reversed(_local.state.open):
             if tag == self.tag:
                 kept.update(attrs)
+                return
+
+    def note_later(self, tensors: dict, finish=None):
+        """Add attributes read from the 0-d integer tensors ``tensors`` at the
+        next :func:`settle`: their values, or ``finish(values)``, a dict, when
+        given (call only while ``recording``)."""
+        for tag, _, _, kept, _, _ in reversed(_local.state.open):
+            if tag == self.tag:
+                _pending.append((kept, tensors, finish))
                 return
 
     def __enter__(self):
@@ -107,6 +122,8 @@ class _Scope:
             else:
                 _dropped[0] += 1
         st.pop()
+        if _pending and not st:
+            settle()
 
 
 def named_scope(tag: str, **attrs) -> _Scope:
@@ -121,6 +138,23 @@ def named_scope(tag: str, **attrs) -> _Scope:
     except KeyError:
         s = _plain[tag] = _Scope(tag, None)
         return s
+
+
+def settle():
+    """Read the pending notes' device counts into their spans (one read by
+    the host); nothing while the current CUDA stream is capturing a graph."""
+    if not _pending:
+        return
+    import torch
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return
+    todo = list(_pending)
+    _pending.clear()
+    flat = [t.reshape(()) for _, tensors, _ in todo for t in tensors.values()]
+    values = iter(torch.stack([t.to(flat[0].device) for t in flat]).tolist())
+    for attrs, tensors, finish in todo:
+        got = {name: next(values) for name in tensors}
+        attrs.update(finish(got) if finish is not None else got)
 
 
 def current_scopes() -> tuple:

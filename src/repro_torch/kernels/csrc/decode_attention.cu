@@ -14,7 +14,11 @@
 //   * GQA by index: q head h reads kv head h / G, G = H / K;
 //   * keys lo .. hi-1 only: the caller folds the valid length, the causal
 //     limit and the sliding window into that range (kernels/
-//     decode_attention.py), so nothing past it is read;
+//     decode_attention.py), so nothing past it is read; or, where the
+//     position lives on the device (a decode step replayed as a CUDA graph),
+//     keys lo .. min(hi, *valid)-1, the grid cut over lo .. hi-1 (the cache's
+//     capacity): the splits that lie past the valid length exit at once and
+//     the combine skips them;
 //   * scores: bf16 q . bf16 k with the products and sums in f32, times the
 //     softmax scale in f32; running max, sum and accumulator in f32;
 //   * probabilities rounded to the cache's type before P V, as the dot path
@@ -99,6 +103,12 @@ __device__ __forceinline__ float round_to(float x, __half) {
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 __device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
+// The end of the keys a call reads: hi, or the valid length that `valid`
+// holds on the device (at least lo, at most hi).
+__device__ __forceinline__ int key_end(int lo, int hi, const long long* valid) {
+  return valid == nullptr ? hi : (int)max((long long)lo, min((long long)hi, *valid));
+}
+
 // Rows that one row group reads a step, and blocks resident per SM: where a
 // block holds up to 4 query heads, 4 rows (2 at 4 heads) and 2 blocks in
 // 128 registers a thread; at 8 heads, q and the accumulators alone take 128,
@@ -110,9 +120,10 @@ template <typename T, int HD, int GT>
 __global__ void __launch_bounds__(kThreads, GT <= 4 ? 2 : 1)
 k3_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 T* __restrict__ out, float* __restrict__ part_o, float* __restrict__ part_ml,
-                int H, int G, int lo, int hi, int chunk, int splits, long long q_sb,
-                long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                long long v_sb, long long v_ss, long long v_sh, float scale) {
+                const long long* __restrict__ valid, int H, int G, int lo, int hi,
+                int chunk, int splits, long long q_sb, long long q_sh, long long k_sb,
+                long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+                float scale) {
   constexpr int L = HD / 8;          // lanes of one key row
   constexpr int R = kThreads / L;    // row groups
   constexpr int U = unroll<GT>();
@@ -125,8 +136,10 @@ k3_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int g0 = (blockIdx.y % n_chunks) * GT;
   const int b = blockIdx.z;
   const int tid = threadIdx.x, rg = tid / L, ln = tid % L;
+  const int end = key_end(lo, hi, valid);
   const int key_lo = lo + split * chunk;
-  const int key_hi = min(hi, key_lo + chunk);
+  if (split > 0 && key_lo >= end) return;    // past the valid length: the combine skips it
+  const int key_hi = min(end, key_lo + chunk);
 
   float qf[GT][8];
 #pragma unroll
@@ -267,18 +280,21 @@ k3_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 // One block of HD threads per (batch row, head): the splits' accumulators
-// weighted by exp(m_s - M), over their weighted sums.
+// weighted by exp(m_s - M), over their weighted sums; of the splits only
+// those that hold a key below the valid length.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
 k3_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-                  T* __restrict__ out, int splits) {
+                  T* __restrict__ out, const long long* __restrict__ valid, int lo, int hi,
+                  int chunk, int splits) {
   const long long bh = blockIdx.x;
   const int d = threadIdx.x;
   const float* ml = part_ml + bh * splits * 2;
+  const int used = max(1, min(splits, (key_end(lo, hi, valid) - lo + chunk - 1) / chunk));
   float M = kInitMax;
-  for (int s = 0; s < splits; ++s) M = fmaxf(M, ml[2 * s]);
+  for (int s = 0; s < used; ++s) M = fmaxf(M, ml[2 * s]);
   float a = 0.f, lsum = 0.f;
-  for (int s = 0; s < splits; ++s) {
+  for (int s = 0; s < used; ++s) {
     const float w = __expf(ml[2 * s] - M);
     lsum += w * ml[2 * s + 1];
     a += w * part_o[(bh * splits + s) * HD + d];
@@ -288,17 +304,19 @@ k3_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ pa
 
 template <typename T, int HD, int GT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* part_o,
-                   float* part_ml, int B, int H, int K, int lo, int hi, int chunk,
-                   int splits, const long long* st, float scale, cudaStream_t s) {
+                   float* part_ml, const long long* valid, int B, int H, int K, int lo,
+                   int hi, int chunk, int splits, const long long* st, float scale,
+                   cudaStream_t s) {
   const int G = H / K;
   const dim3 grid(splits, K * ((G + GT - 1) / GT), B);
   k3_split_kernel<T, HD, GT><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), part_o, part_ml, H, G, lo, hi, chunk, splits, st[0], st[1],
+      static_cast<T*>(out), part_o, part_ml, valid, H, G, lo, hi, chunk, splits, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  k3_combine_kernel<T, HD><<<B * H, HD, 0, s>>>(part_o, part_ml, static_cast<T*>(out), splits);
+  k3_combine_kernel<T, HD><<<B * H, HD, 0, s>>>(part_o, part_ml, static_cast<T*>(out), valid,
+                                                lo, hi, chunk, splits);
   return cudaGetLastError();
 }
 
@@ -310,27 +328,29 @@ cudaError_t occupancy(int* blocks_per_sm) {
 
 template <typename T, int HD>
 cudaError_t by_heads(int gt, const void* q, const void* k, const void* v, void* out,
-                     float* part_o, float* part_ml, int B, int H, int K, int lo, int hi,
-                     int chunk, int splits, const long long* st, float scale, cudaStream_t s) {
+                     float* part_o, float* part_ml, const long long* valid, int B, int H,
+                     int K, int lo, int hi, int chunk, int splits, const long long* st,
+                     float scale, cudaStream_t s) {
   switch (gt) {
-    case 1: return launch<T, HD, 1>(q, k, v, out, part_o, part_ml, B, H, K, lo, hi, chunk, splits, st, scale, s);
-    case 2: return launch<T, HD, 2>(q, k, v, out, part_o, part_ml, B, H, K, lo, hi, chunk, splits, st, scale, s);
-    case 4: return launch<T, HD, 4>(q, k, v, out, part_o, part_ml, B, H, K, lo, hi, chunk, splits, st, scale, s);
-    case 8: return launch<T, HD, 8>(q, k, v, out, part_o, part_ml, B, H, K, lo, hi, chunk, splits, st, scale, s);
+    case 1: return launch<T, HD, 1>(q, k, v, out, part_o, part_ml, valid, B, H, K, lo, hi, chunk, splits, st, scale, s);
+    case 2: return launch<T, HD, 2>(q, k, v, out, part_o, part_ml, valid, B, H, K, lo, hi, chunk, splits, st, scale, s);
+    case 4: return launch<T, HD, 4>(q, k, v, out, part_o, part_ml, valid, B, H, K, lo, hi, chunk, splits, st, scale, s);
+    case 8: return launch<T, HD, 8>(q, k, v, out, part_o, part_ml, valid, B, H, K, lo, hi, chunk, splits, st, scale, s);
   }
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t by_dim(int hd, int gt, const void* q, const void* k, const void* v, void* out,
-                   float* part_o, float* part_ml, int B, int H, int K, int lo, int hi,
-                   int chunk, int splits, const long long* st, float scale, cudaStream_t s) {
+                   float* part_o, float* part_ml, const long long* valid, int B, int H,
+                   int K, int lo, int hi, int chunk, int splits, const long long* st,
+                   float scale, cudaStream_t s) {
   switch (hd) {
-    case 16: return by_heads<T, 16>(gt, q, k, v, out, part_o, part_ml, B, H, K, lo, hi, chunk, splits, st, scale, s);
-    case 32: return by_heads<T, 32>(gt, q, k, v, out, part_o, part_ml, B, H, K, lo, hi, chunk, splits, st, scale, s);
-    case 64: return by_heads<T, 64>(gt, q, k, v, out, part_o, part_ml, B, H, K, lo, hi, chunk, splits, st, scale, s);
-    case 128: return by_heads<T, 128>(gt, q, k, v, out, part_o, part_ml, B, H, K, lo, hi, chunk, splits, st, scale, s);
-    case 256: return by_heads<T, 256>(gt, q, k, v, out, part_o, part_ml, B, H, K, lo, hi, chunk, splits, st, scale, s);
+    case 16: return by_heads<T, 16>(gt, q, k, v, out, part_o, part_ml, valid, B, H, K, lo, hi, chunk, splits, st, scale, s);
+    case 32: return by_heads<T, 32>(gt, q, k, v, out, part_o, part_ml, valid, B, H, K, lo, hi, chunk, splits, st, scale, s);
+    case 64: return by_heads<T, 64>(gt, q, k, v, out, part_o, part_ml, valid, B, H, K, lo, hi, chunk, splits, st, scale, s);
+    case 128: return by_heads<T, 128>(gt, q, k, v, out, part_o, part_ml, valid, B, H, K, lo, hi, chunk, splits, st, scale, s);
+    case 256: return by_heads<T, 256>(gt, q, k, v, out, part_o, part_ml, valid, B, H, K, lo, hi, chunk, splits, st, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -341,15 +361,17 @@ cudaError_t by_dim(int hd, int gt, const void* q, const void* k, const void* v, 
 // q head, k batch, k seq, k head, v batch, v seq, v head}; the last dim of
 // each contiguous.  out [B,1,H,hd] contiguous.  Keys lo .. hi-1 (0 <= lo <
 // hi <= S), cut into `splits` splits of `chunk` keys (the last ragged, none
-// empty); part_o [B,H,splits,hd] and part_ml [B,H,splits,2] f32 scratch,
-// unused when splits == 1.  dtype 1 = bf16, 2 = f16.  gt: query heads per
+// empty); with `valid` (a device int64, or null) only the keys below
+// min(hi, *valid), the grid still cut over lo .. hi-1.  part_o
+// [B,H,splits,hd] and part_ml [B,H,splits,2] f32 scratch, unused when
+// splits == 1.  dtype 1 = bf16, 2 = f16.  gt: query heads per
 // block (1, 2, 4 or 8).  Launches one kernel (splits == 1) or two on
 // `stream`; returns a cudaError_t.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v, void* out,
-                                      void* part_o, void* part_ml, int dtype, int B, int H,
-                                      int K, int hd, int gt, int lo, int hi, int chunk,
-                                      int splits, const long long* strides, float scale,
-                                      void* stream) {
+                                      void* part_o, void* part_ml, const void* valid,
+                                      int dtype, int B, int H, int K, int hd, int gt, int lo,
+                                      int hi, int chunk, int splits, const long long* strides,
+                                      float scale, void* stream) {
   if (B < 1 || B > 65535 || K < 1 || H < K || H % K != 0 || lo < 0 || hi <= lo ||
       chunk < 1 || splits < 1 || (long long)(splits - 1) * chunk >= (long long)(hi - lo) ||
       (long long)splits * chunk < (long long)(hi - lo) ||
@@ -361,12 +383,13 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
+  const long long* vl = static_cast<const long long*>(valid);
   if (dtype == 1)
-    return (int)by_dim<__nv_bfloat16>(hd, gt, q, k, v, out, po, pml, B, H, K, lo, hi, chunk,
-                                      splits, strides, scale, s);
+    return (int)by_dim<__nv_bfloat16>(hd, gt, q, k, v, out, po, pml, vl, B, H, K, lo, hi,
+                                      chunk, splits, strides, scale, s);
   if (dtype == 2)
-    return (int)by_dim<__half>(hd, gt, q, k, v, out, po, pml, B, H, K, lo, hi, chunk, splits,
-                               strides, scale, s);
+    return (int)by_dim<__half>(hd, gt, q, k, v, out, po, pml, vl, B, H, K, lo, hi, chunk,
+                               splits, strides, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

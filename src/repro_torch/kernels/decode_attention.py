@@ -13,6 +13,13 @@ combines the splits (none when there is one split).  ``k3_splits`` picks
 the split count from B * K and the range's length: as many splits as fill
 the card's resident blocks once.
 
+Where the position lives on the device (a decode step replayed as a CUDA
+graph, ``models/decode_graph.py``), ``valid`` is an int64 tensor of one
+element holding the end of the keys: the call reads keys ``lo`` to
+``min(hi, valid) - 1``, over the grid that ``lo .. hi - 1`` (the cache's
+capacity) sets, so the launch's shape does not change from step to step.
+Splits past the valid length exit at once and the combine skips them.
+
 ``decode_attention`` launches the kernel for CUDA tensors and runs the
 plain version, the same algorithm in PyTorch, for tensors on the CPU.  It
 counts its kernel launches in ``decode_attention.launches`` (by kernel in
@@ -69,6 +76,12 @@ def kv_bytes(k, lo: int, hi: int) -> int:
     return 2 * B * (hi - lo) * K * hd * k.element_size()
 
 
+def key_end(lo: int, hi: int, valid) -> int:
+    """The end of the keys a call reads: ``hi``, or the valid length that the
+    tensor ``valid`` holds, kept within lo .. hi (read by the host)."""
+    return hi if valid is None else max(lo, min(hi, int(valid)))
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -77,15 +90,15 @@ def _sms(index: int) -> int:
 def _lib():
     fn = build.load("decode_attention").repro_decode_attention
     if fn.argtypes is None:
-        # q, k, v, out, part_o, part_ml; dtype, B, H, K, hd, gt, lo, hi, chunk,
-        # splits; strides; scale; stream
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+        # q, k, v, out, part_o, part_ml, valid; dtype, B, H, K, hd, gt, lo, hi,
+        # chunk, splits; strides; scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, lo, hi):
+def _check(q, k, v, lo, hi, valid=None):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or q.shape[1] != 1:
         raise ValueError("decode_attention wants q [B,1,H,hd], k/v [B,S,K,hd]")
     B, _, H, hd = q.shape
@@ -98,16 +111,21 @@ def _check(q, k, v, lo, hi):
         raise ValueError(f"key range {lo}..{hi} not inside 0..{k.shape[1]}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    if valid is not None and (valid.dtype != torch.int64 or valid.numel() != 1
+                              or valid.device != q.device):
+        raise ValueError("valid must be one int64 on q's device")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("K3 (decode attention) has no backward")
 
 
-def decode_attention_plain(q, k, v, *, lo, hi, softmax_scale=None, splits=None):
+def decode_attention_plain(q, k, v, *, lo, hi, softmax_scale=None, splits=None, valid=None):
     """The plain PyTorch version of K3: the keys lo .. hi-1 cut into
     ``splits`` splits (``k3_splits``'s by default), each split's scores
     (f32 products of q and k, times the scale in f32), max ``m``, sum ``l``
     of exp(s - m) and P V with exp(s - m) rounded to the cache's type, all
-    in f32; then the splits combined, weighted by exp(m - max m)."""
+    in f32; then the splits combined, weighted by exp(m - max m).  With
+    ``valid``, the keys past its value are left out: the splits that start
+    there are skipped, the one it cuts is cut short."""
     B, _, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -117,10 +135,13 @@ def decode_attention_plain(q, k, v, *, lo, hi, softmax_scale=None, splits=None):
         _, splits, chunk = _split(B, H, K, n)
     else:
         chunk = -(-n // splits)
+    end = key_end(lo, hi, valid)
+    if end == lo:                                        # no key: the kernel writes zeros
+        return torch.zeros_like(q)
     qg = q.reshape(B, K, G, hd).float()
     ms, ls, accs = [], [], []
-    for a in range(lo, hi, chunk):
-        k_s, v_s = k[:, a:min(hi, a + chunk)], v[:, a:min(hi, a + chunk)]
+    for a in range(lo, end, chunk):
+        k_s, v_s = k[:, a:min(end, a + chunk)], v[:, a:min(end, a + chunk)]
         s = torch.einsum("bkgd,bskd->bkgs", qg, k_s.float()) * scale
         m = s.amax(dim=-1)
         p = torch.exp(s - m[..., None])
@@ -135,21 +156,25 @@ def decode_attention_plain(q, k, v, *, lo, hi, softmax_scale=None, splits=None):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def decode_attention(q, k, v, *, lo, hi, softmax_scale=None):
-    """q [B,1,H,hd]; k, v [B,S,K,hd] -> [B,1,H,hd] over keys lo .. hi-1.
+def decode_attention(q, k, v, *, lo, hi, softmax_scale=None, valid=None):
+    """q [B,1,H,hd]; k, v [B,S,K,hd] -> [B,1,H,hd] over keys lo .. hi-1, or
+    with ``valid`` (one int64 on q's device) over keys lo .. min(hi, valid)-1
+    on the grid of lo .. hi-1.
 
     CPU tensors take the plain version; CUDA tensors launch K3 on the
     current stream (one or two launches, counted), or raise on what it does
     not take."""
-    _check(q, k, v, lo, hi)
+    _check(q, k, v, lo, hi, valid)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale)
-    return _launch(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale)
+        return decode_attention_plain(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale,
+                                      valid=valid)
+    return _launch(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale, valid=valid)
 
 
-def _launch(q, k, v, *, lo, hi, softmax_scale=None, splits=None):
+def _launch(q, k, v, *, lo, hi, softmax_scale=None, splits=None, valid=None):
     """Launch K3 on checked CUDA tensors, with ``k3_splits``'s split count
-    or ``splits`` (chip_smoke.py times other counts through here)."""
+    or ``splits`` (chip_smoke.py times other counts through here), and the
+    device's valid length ``valid`` or none."""
     if q.device.type != "cuda":
         raise ValueError(f"no K3 kernel for device {q.device}")
     if type(q) is not torch.Tensor or type(k) is not torch.Tensor or type(v) is not torch.Tensor:
@@ -183,6 +208,7 @@ def _launch(q, k, v, *, lo, hi, softmax_scale=None, splits=None):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part_o, part_ml,
+                     0 if valid is None else valid.data_ptr(),
                      _DTYPE_CODES[q.dtype], B, H, K, hd, gt, lo, hi, chunk, splits,
                      (ctypes.c_longlong * 8)(*strides), float(scale), stream)
     if err != 0:

@@ -28,12 +28,18 @@ def flash_attention(q, k, v, *, causal=True, window=None, softmax_scale=None):
         return out.transpose(1, 2)
 
 
-def decode_attention(q, k, v, *, lo, hi, softmax_scale=None):
-    """q [B,1,H,hd]; k,v [B,S,K,hd] -> [B,1,H,hd] over keys lo .. hi-1 (K3)."""
+def decode_attention(q, k, v, *, lo, hi, softmax_scale=None, valid=None):
+    """q [B,1,H,hd]; k,v [B,S,K,hd] -> [B,1,H,hd] over keys lo .. hi-1, or
+    lo .. min(hi, valid)-1 with a device length ``valid`` (K3)."""
     with named_scope("k3") as sp:
-        if sp.recording:
+        if sp.recording and valid is None:
             sp.note(bytes=_da.kv_bytes(k, lo, hi))
-        return _da.decode_attention(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale)
+        elif sp.recording:      # the keys read are known once the step has run
+            per_key = _da.kv_bytes(k, 0, 1)
+            sp.note_later({"valid": valid}, lambda got: {
+                "bytes": per_key * (_da.key_end(lo, hi, got["valid"]) - lo)})
+        return _da.decode_attention(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale,
+                                    valid=valid)
 
 
 def copy_bytes(*views) -> int:

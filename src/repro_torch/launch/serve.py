@@ -27,7 +27,9 @@ spans (``core.scope``: tag, ids, times, attributes such as bytes copied) to
 PATH.spans.jsonl, and prints a table by span tag, for the whole batch and
 for one decode step: count, host ms in all and less the spans inside
 ("self"), kernel launches, device idle ms, each put down to the innermost
-span open at that moment, and GiB counted by the spans' byte attributes:
+span open at that moment, and GiB counted by the spans' byte attributes;
+then how the process's decode steps ran (``models/decode_graph.py``: a
+CUDA graph captured, replayed, or the step run eagerly):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --batch 4 --prompt-len 16384 --gen 16 --trace build/mamba2.json
@@ -48,6 +50,7 @@ import torch.nn.functional as F
 from repro_torch.configs import get_config
 from repro_torch.core import scope
 from repro_torch.core.scope import named_scope
+from repro_torch.models import decode_graph
 from repro_torch.models.lm import LM, resolve_device
 
 
@@ -182,6 +185,8 @@ def _profiled(path, device: torch.device):
         rows = scope.attribute(steps, events)
         rows.pop("(none)", None)          # the time between the steps
         print(_table(f"one decode step (mean of {n})", rows, n))
+    print("[serve] decode steps by how they ran: " + ", ".join(
+        f"{how} {n}" for how, n in decode_graph.COUNTS.items()))
 
 
 def _table(title, rows, per):

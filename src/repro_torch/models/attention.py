@@ -21,7 +21,10 @@ A "dot" call of one query row on the card goes to K3, the decode-attention
 kernel (kernels/decode_attention.py), when ``k3_refusal`` finds nothing
 against it: it reads the bf16 or f16 cache in place, only the keys the
 row attends to, with no float32 cast (its "attention_core" span notes
-``cast_bytes`` 0).
+``cast_bytes`` 0).  A decode step replayed as a CUDA graph passes its
+position as a device tensor (``kv_valid_len`` = position + 1): K3 then reads
+the valid length from the device over a grid the cache's capacity sets,
+and the dot path masks by it as by an int.
 """
 from __future__ import annotations
 
@@ -235,13 +238,23 @@ def _key_range(k, *, causal, window, q_offset, kv_valid_len) -> tuple:
     return lo, hi
 
 
+def _device_length(q, causal, window, q_offset, kv_valid_len) -> bool:
+    """Does the call give its positions as a device tensor that K3 takes:
+    the valid length one int64 on q's device, with no causal limit and no
+    window to fold into the key range?"""
+    return (torch.is_tensor(kv_valid_len) and kv_valid_len.dtype == torch.int64
+            and kv_valid_len.numel() == 1 and kv_valid_len.device == q.device
+            and not causal and (window is None or window <= 0))
+
+
 def k3_refusal(q, k, v, *, impl, causal=True, window=None, q_offset=0, kv_valid_len=None,
                k_scale=None, v_scale=None) -> str | None:
     """Why K3 does not take this attention call, or None when it does.  A
     rule on the inputs alone: the "dot" impl, one query row, plain tensors
     (not DTensors) on a CUDA card, k and v of q's type (bf16 or f16) with no
     scales, an int or no window, a head dim that K3 instantiates, int
-    positions that leave some key, and no gradient wanted."""
+    positions that leave some key or a device length (``_device_length``),
+    and no gradient wanted."""
     if impl != "dot":
         return "impl"
     if q.dim() != 4 or q.shape[1] != 1:
@@ -256,12 +269,13 @@ def k3_refusal(q, k, v, *, impl, causal=True, window=None, q_offset=0, kv_valid_
         return "a tensor window"
     if q.shape[3] not in K3_HEAD_DIMS:
         return "head_dim"
-    if not isinstance(q_offset, int) or not isinstance(kv_valid_len, (int, type(None))):
-        return "a tensor position"
-    lo, hi = _key_range(k, causal=causal, window=window, q_offset=q_offset,
-                        kv_valid_len=kv_valid_len)
-    if hi <= lo:
-        return "no key"
+    if not _device_length(q, causal, window, q_offset, kv_valid_len):
+        if not isinstance(q_offset, int) or not isinstance(kv_valid_len, (int, type(None))):
+            return "a tensor position"
+        lo, hi = _key_range(k, causal=causal, window=window, q_offset=q_offset,
+                            kv_valid_len=kv_valid_len)
+        if hi <= lo:
+            return "no key"
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return "a gradient"
     if not _on_card(q, k, v):
@@ -275,14 +289,20 @@ def _on_card(q, k, v) -> bool:
 
 def attention_decode(q, k, v, *, causal=True, window=None, q_offset=0, kv_valid_len=None,
                      softmax_scale=None):
-    """One query row through K3, over the keys ``_key_range`` gives."""
+    """One query row through K3, over the keys ``_key_range`` gives, or
+    over the keys below a device length, on the grid of the whole cache."""
     from repro_torch.kernels import ops as kops
-    lo, hi = _key_range(k, causal=causal, window=window, q_offset=q_offset,
-                        kv_valid_len=kv_valid_len)
+    valid = None
+    if torch.is_tensor(kv_valid_len):
+        lo, hi, valid = 0, k.shape[1], kv_valid_len
+    else:
+        lo, hi = _key_range(k, causal=causal, window=window, q_offset=q_offset,
+                            kv_valid_len=kv_valid_len)
     with named_scope("attention_core") as sp:
         if sp.recording:
             sp.note(cast_bytes=0)
-        return kops.decode_attention(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale)
+        return kops.decode_attention(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale,
+                                     valid=valid)
 
 
 def attention(q, k, v, *, impl="auto", causal=True, window=None, q_offset=0,

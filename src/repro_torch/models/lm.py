@@ -40,6 +40,12 @@ Design notes
   the cross K/V are computed once at prefill and cached as
   ``{"self": ..., "cross": ...}``.  The vlm family (llava) prepends
   ``embeds_prefix`` to the token embeddings.
+* ``decode`` runs a step as one CUDA graph replay where
+  ``decode_graph.decode_graph_refusal`` finds nothing against it (one
+  card, plain tensors, no gradient, K3 on every attention layer): the step
+  is captured on the batch's own cache, and its position is read from the
+  device by RoPE, the cache write and K3 (``models/decode_graph.py``).
+  Anything else runs the same step eagerly.
 * On a plan whose mesh is a DeviceMesh of more than one device, every
   parameter is a DTensor placed from its logical axes (``plan.placements``),
   and so are the caches; the JAX package's leading "layers"/"groups" axis,
@@ -71,8 +77,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.scope import current_scopes, named_scope
+from repro_torch.core.scope import current_scopes, named_scope, settle
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import decode_graph
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, abstract_tree, apply_rope,
@@ -177,14 +184,18 @@ def _quantize_kv(x):
     return torch.clamp(q, -127, 127).to(torch.int8), scale
 
 
-def _write_pos(buf, pos: int, val):
-    """``buf[:, pos] = val[:, 0]`` in place (dim 1 the sequence).  A DTensor
-    cache, which may be sharded on its sequence (the flash-decode layout),
-    is written on its local shard by the rank that holds ``pos``; ``val``
-    is brought to the cache's placements with its sequence replicated."""
+def _write_pos(buf, pos, val):
+    """``buf[:, pos] = val[:, 0]`` in place (dim 1 the sequence); ``pos`` an
+    int, or one int64 on the device (a step replayed as a CUDA graph).  A
+    DTensor cache, which may be sharded on its sequence (the flash-decode
+    layout), is written on its local shard by the rank that holds ``pos``;
+    ``val`` is brought to the cache's placements with its sequence
+    replicated."""
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(buf, DTensor):
-        buf.index_copy_(1, torch.full((1,), pos, dtype=torch.long, device=buf.device), val)
+        at = pos if torch.is_tensor(pos) else torch.full((1,), pos, dtype=torch.long,
+                                                          device=buf.device)
+        buf.index_copy_(1, at, val)
         return
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     mesh, pl = buf.device_mesh, buf.placements
@@ -298,6 +309,7 @@ class LM(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.plan = plan or make_plan(cfg)
+        self._decode_graphs = decode_graph.DecodeGraphs()
         if cfg.hybrid is not None:
             assert cfg.num_layers % cfg.hybrid.attn_period == 0
             self.n_groups = cfg.num_layers // cfg.hybrid.attn_period
@@ -419,6 +431,7 @@ class LM(nn.Module):
         ``cross_kv`` ({"k", "v"} from the encoder) makes it a cross-attention
         (no RoPE, non-causal, dot).  With ``cfg.rope`` False no attention
         has RoPE; ``cfg.attention_multiplier`` is the softmax scale.
+        In decode ``pos`` is an int or one int64 on the device.
         Returns (out [B,S,D], new_cache_entry_or_None).
         """
         with named_scope("attention"):
@@ -465,6 +478,8 @@ class LM(nn.Module):
             if cfg.rope:
                 if pos is None:
                     positions = torch.arange(S, device=x.device)[None, :]
+                elif torch.is_tensor(pos):
+                    positions = pos.reshape(1, 1).expand(B, 1)
                 else:
                     positions = torch.full((B, 1), pos, device=x.device)
                 q = apply_rope(q, positions, theta)
@@ -884,11 +899,28 @@ class LM(nn.Module):
         """One serve step.  token [B,1] int; pos int (the image prefix
         counted).  Writes the new key and value (or the new SSM and conv
         states) into ``cache`` in place.  Returns (logits [B,1,V_pad] with
-        the padded vocab masked, cache)."""
-        with self.spmd(), named_scope("decode", batch=token.shape[0], pos=pos):
-            x = self._embed_inputs(token)
-            x, cache, _ = self._stack(x, cache=cache, pos=pos)
-            return self._logits(x), cache
+        the padded vocab masked, cache).  A CUDA graph replays the step
+        where ``decode_graph.decode_graph_refusal`` allows it; the ``decode``
+        span notes ``graph`` ("capture", "replay" or "eager", the last with
+        ``why``)."""
+        with self.spmd(), named_scope("decode", batch=token.shape[0], pos=pos) as sp:
+            why = decode_graph.decode_graph_refusal(self, cache, token)
+            if why is None:
+                logits, how, why = self._decode_graphs.step(self, cache, token, pos)
+            else:
+                logits, how = self._step(cache, token, pos), "eager"
+            decode_graph.COUNTS[how] += 1
+            if sp.recording:
+                sp.note(graph=how, **({"why": why} if why else {}))
+            settle()
+            return logits, cache
+
+    def _step(self, cache, token, pos):
+        """The decode step itself: logits [B,1,V_pad] for ``token`` at ``pos``
+        (an int, or one int64 on the device), the cache written in place."""
+        x = self._embed_inputs(token)
+        x, _, _ = self._stack(x, cache=cache, pos=pos)
+        return self._logits(x)
 
     # ----------------------------------------------------------- caches
     def cache_layout(self, batch: int, seq: int, kv_dtype: str = "bfloat16"):

@@ -34,7 +34,9 @@ takes, added to the routed output.  ``moe_ffn`` is one ``moe`` span
 combine weighs), ``dropped`` (the router's pairs of held experts less
 ``pairs``) and
 ``copy_bytes`` (what the gather, the casts and the scatter write outside
-the expert products).
+the expert products).  The slot layout's counts live on the device; the
+span reads them after the step (``core.scope.note_later``), so that a
+decode step captured as a CUDA graph makes no read by the host.
 
 All are plain PyTorch: the JAX package computes the dispatch in jnp, with
 no Pallas kernel.
@@ -317,10 +319,18 @@ def moe_ffn_held(x, params, moe: MoEConfig):
     y, routed, pairs, copy = layout(xt, gates, eidx - lo, held, params)
     sp = named_scope("moe")
     if "moe" in current_scopes() and sp.recording:     # the open "moe" span's counters
-        if torch.is_tensor(pairs):      # the host's read, made only while recorded
-            routed, pairs = torch.stack([routed, pairs]).tolist()
-        sp.note(held=hi - lo, pairs=pairs, dropped=routed - pairs, copy_bytes=copy)
+        sp.note(held=hi - lo, copy_bytes=copy)
+        if torch.is_tensor(pairs):      # on the device: read after the step, only while recorded
+            sp.note_later({"routed": routed, "pairs": pairs}, _pairs_dropped)
+        else:
+            sp.note(**_pairs_dropped({"routed": routed, "pairs": pairs}))
     return y.reshape(B, S, D), aux
+
+
+def _pairs_dropped(got):
+    """The ``moe`` span's ``pairs`` and ``dropped`` from the router's held
+    pairs (``routed``) and the pairs the experts computed."""
+    return {"pairs": got["pairs"], "dropped": got["routed"] - got["pairs"]}
 
 
 def _held_slots(xt, gates, e_loc, held, params):

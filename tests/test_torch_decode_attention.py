@@ -5,8 +5,10 @@ rule that sends a call to it.
   split's max, sum and P V, then the splits combined) against the port's
   dot path and the JAX package's, at G in {1, 2, 8}, hd in {16, 64, 128}, a
   valid length below S, an int window, one split and many, a ragged last
-  split; in f32 at test_attention.py's 1e-5, in bf16 at K1's 3e-2.  Keys
-  outside the range are set to values that would show if they were read.
+  split, and a valid length held in a tensor (a decode step replayed as a
+  CUDA graph) with the splits cut over all S keys, the trailing ones empty;
+  in f32 at test_attention.py's 1e-5, in bf16 at K1's 3e-2.  Keys outside
+  the range are set to values that would show if they were read.
 * ``k3_splits``: enough blocks, no split shorter than its floor, none empty.
 * ``k3_refusal``: which inputs go to K3 and which stay on the dot path (the
   card test holds the kernel itself).
@@ -47,6 +49,13 @@ CASES = [
     ("many_splits", 300, 290, None, 7),
     ("ragged_last", 64, 61, 20, 3),
 ]
+# the valid length in a tensor: the splits cut over all S keys (a cache's
+# capacity), those past the length empty
+DEVICE_CASES = [
+    ("device_length_trailing_empty", 300, 120, None, 7),    # splits of 43: 3 hold keys
+    ("device_length_cut_split", 64, 50, None, 3),           # of 22: the third cut to 6
+    ("device_length_one_split", 40, 29, None, 1),
+]
 
 
 def _inputs(B, S, H, K, hd, lo, hi, dtype, seed):
@@ -69,13 +78,18 @@ def _kw(valid, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("G", [1, 2, 8])
-@pytest.mark.parametrize("name,S,valid,window,splits", CASES, ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("name,S,valid,window,splits", CASES + DEVICE_CASES,
+                         ids=[c[0] for c in CASES + DEVICE_CASES])
 def test_plain_matches_the_dot_path(name, S, valid, window, splits, G, hd, dtype):
     K = 2
     lo = max(0, valid - window) if window else 0
     arrays = _inputs(2, S, G * K, K, hd, lo, valid, np.float32, seed=G * hd + S)
     q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
-    got = da.decode_attention_plain(q, k, v, lo=lo, hi=valid, splits=splits)
+    if name.startswith("device_length"):
+        got = da.decode_attention_plain(q, k, v, lo=0, hi=S, splits=splits,
+                                        valid=torch.tensor([valid]))
+    else:
+        got = da.decode_attention_plain(q, k, v, lo=lo, hi=valid, splits=splits)
     want = ta._attention_dot(q, k, v, **_kw(valid, window))
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
@@ -90,13 +104,18 @@ def _jax_dot(window, q_offset, kv_valid_len):
 
 @pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("G", [1, 2, 8])
-@pytest.mark.parametrize("name,S,valid,window,splits", CASES, ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("name,S,valid,window,splits", CASES + DEVICE_CASES,
+                         ids=[c[0] for c in CASES + DEVICE_CASES])
 def test_plain_matches_jax(name, S, valid, window, splits, G, hd):
     K = 2
     lo = max(0, valid - window) if window else 0
     q, k, v = _inputs(1, S, G * K, K, hd, lo, valid, np.float32, seed=7 + G + hd)
-    got = da.decode_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)), lo=lo,
-                                    hi=valid, splits=splits)
+    if name.startswith("device_length"):
+        rng = dict(lo=0, hi=S, valid=torch.tensor([valid]))
+    else:
+        rng = dict(lo=lo, hi=valid)
+    got = da.decode_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    splits=splits, **rng)
     want = _jax_dot(window, valid - 1, valid)(*(jnp.asarray(a) for a in (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
@@ -169,7 +188,12 @@ RULE = [   # (case, changed inputs, the reason; None-like "not on a CUDA card" =
                  v=torch.zeros(2, 40, 2, 64)), "dtype"),
     ("mixed_dtype", dict(q=torch.zeros(2, 1, 4, 64)), "dtype"),
     ("chunked", dict(impl="chunked"), "impl"),
-    ("tensor_position", dict(kv_valid_len=torch.tensor(5)), "a tensor position"),
+    ("tensor_position", dict(kv_valid_len=torch.tensor(5), window=8), "a tensor position"),
+    ("device_length", dict(kv_valid_len=torch.tensor([5])), "not on a CUDA card"),
+    ("device_length_causal", dict(kv_valid_len=torch.tensor([5]), causal=True),
+     "a tensor position"),
+    ("device_length_int32", dict(kv_valid_len=torch.tensor([5], dtype=torch.int32)),
+     "a tensor position"),
     ("no_key", dict(kv_valid_len=0), "no key"),
     ("gradient", dict(q=torch.zeros(2, 1, 4, 64, dtype=torch.bfloat16, requires_grad=True)),
      "a gradient"),

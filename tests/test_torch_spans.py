@@ -2,8 +2,9 @@
 and mamba2 configs, on the CPU.
 
 * Off the profiler nothing is recorded; a profiled decode step is one root
-  ``decode`` span with a ``layer`` child per layer and the spans of each
-  layer's parts under those, parent ids included.
+  ``decode`` span (noting that it ran eagerly, off the card) with a
+  ``layer`` child per layer and the spans of each layer's parts under
+  those, parent ids included.
 * A span lies within 50 us of its own ``record_function`` event: the two
   share a clock.
 * ``cast_bytes`` is the shape arithmetic of the cache's float32 casts.
@@ -94,7 +95,8 @@ def test_a_decode_step_is_one_tree_of_spans(arch):
     _profiled_steps(lm, cache, tok, 1)
     spans = scope.spans()
     roots = [s for s in spans if s.parent == 0]
-    assert [(s.tag, s.attrs) for s in roots] == [("decode", {"batch": B, "pos": S})]
+    assert [(s.tag, s.attrs) for s in roots] == [("decode", {
+        "batch": B, "pos": S, "graph": "eager", "why": "not on a CUDA card"})]
     assert len({s.id for s in spans}) == len(spans)
     tree = TREE[arch]
     layers = [s for s in _children(spans, roots[0]) if s.tag == "layer"]
@@ -292,6 +294,7 @@ def test_serve_trace_writes_the_export_and_prints_the_spans(tmp_path, capsys):
     assert (plain.tokens == traced.tokens).all()
     out = capsys.readouterr().out
     assert "spans, the batch" in out and "spans, one decode step (mean of 2)" in out
+    assert "[serve] decode steps by how they ran: capture 0, replay 0, eager " in out
     names = {e["name"] for e in json.loads(path.read_text())["traceEvents"]}
     assert {"serve.batch", "prefill", "decode", "sample", "grow_cache"} <= names
     spans = [json.loads(line) for line in (tmp_path / "serve.json.spans.jsonl").open()]
