@@ -46,8 +46,8 @@
 //   tile att and the state are rounded to tf32.  On bf16 att and state
 //   operands the serve shape's y was off by 3.0e-2 before it is stored, more
 //   than half of the 5e-2 tolerance; tf32 for those two products cuts that
-//   (PERF.md; the bf16-operand kernel stays as TF32 = false, which
-//   chip_smoke.py measures beside it).  The sums, the carried state, cum,
+//   (PERF.md; tests/test_torch_kernels_card.py holds y before its rounding
+//   to bf16 within the tolerance).  The sums, the carried state, cum,
 //   the decays and w stay fp32 (tests/test_torch_tc_rounding.py models
 //   this rounding against the reference).  A warp owns 16 rows of the chunk
 //   for the y products, so att goes from the C B^T accumulators to the A
@@ -55,8 +55,7 @@
 //   lives in that warp's accumulators for the whole sequence.  C state^T is
 //   computed there as state C^T, with the state as the A operand straight
 //   from the accumulators, and handed to the warps that own y's rows through
-//   shared memory (a bf16 state copy, the B operand of C state^T, in the
-//   bf16-operand kernel).  The next chunk's x, B and C are
+//   shared memory.  The next chunk's x, B and C are
 //   prefetched with 16-byte cp.async into a second buffer while the current
 //   one is multiplied (dt into registers of the warp that scans it), so a
 //   chunk costs two block barriers.  Tiles are bf16 with rows padded by
@@ -353,13 +352,13 @@ cudaError_t dispatch(const void* x, const void* dt, const void* A, const void* B
 // ---- tc: bf16 on tensor cores ------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int kTcPad = 8;               // bf16 padding per shared row: rows 16 B apart mod 128 B
-constexpr int kTcNS = kNM + kTcPad;     // row stride of B, C and the state copy
+constexpr int kTcNS = kNM + kTcPad;     // row stride of B and C
 
 template <int PM>
 constexpr size_t tc_smem_bytes() {
   return ((size_t)2 * kQ * (PM + kTcPad)       // xs [2][Q][PM+8]
           + (size_t)4 * kQ * kTcNS             // Bs, Cs [2][Q][NM+8]
-          + (size_t)PM * kTcNS) * sizeof(bf16) // Sb [PM][NM+8], bf16 copy of the state
+          + (size_t)PM * kTcNS) * sizeof(bf16) // Sb [PM][NM+8], which holds Ts
          + (size_t)2 * 4 * kQ * sizeof(float); // dt, cum, exp(cum), w [2][4][Q]
 }
 
@@ -380,11 +379,10 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
 // 64 (w / 4) .. +63 (at PM = 128 two warps compute the same C B^T rows).
 // TY is y's type: bf16 as x, or float, which stores y before it is rounded
 // (used to measure the operand rounding apart from the output rounding).
-// TF32 takes att x and C state^T on tf32 operands (m16n8k8) instead of
-// bf16; C state^T is then computed as state C^T from the fp32 state in the
-// accumulators, and passed to the warps that own y's rows through the
-// shared memory that otherwise holds the bf16 copy of the state.
-template <typename TD, typename TY, bool TF32, int PM>
+// att x and C state^T take tf32 operands (m16n8k8); C state^T is computed as
+// state C^T from the fp32 state in the accumulators, and passed to the warps
+// that own y's rows through shared memory (Ts).
+template <typename TD, typename TY, int PM>
 __global__ void __launch_bounds__(PM / 16 * 32, PM <= 64 ? 2 : 1)
 ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
                    const float* __restrict__ A, const bf16* __restrict__ Bm,
@@ -403,7 +401,7 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
   bf16* Bs = xs + 2 * kQ * XS;                    // [2][Q][NS]
   bf16* Cs = Bs + 2 * kQ * NS;                    // [2][Q][NS]
   bf16* Sb = Cs + 2 * kQ * NS;                    // [PM][NS]
-  float* Ts = reinterpret_cast<float*>(Sb);       // [Q][TS], state C^T (TF32)
+  float* Ts = reinterpret_cast<float*>(Sb);       // [Q][TS], state C^T
   float* fl = reinterpret_cast<float*>(Sb + PM * NS);   // [2][dt, cum, exp(cum), w][Q]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -438,18 +436,6 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
                       ? h0[((int64_t)b * H + h) * P * N + (int64_t)p * N + n] : 0.f;
     }
   __syncthreads();   // the zeros land before the copies below
-  auto store_state_copy = [&]() {
-    if constexpr (TF32) return;   // C state^T reads the accumulators instead
-#pragma unroll
-    for (int nt = 0; nt < NNT; ++nt) {
-      if (nt * 8 >= N16) break;
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<uint32_t*>(Sb + prow[r] * NS + nt * 8 + 2 * t) =
-            tc::pack_bf16(st[nt][2 * r], st[nt][2 * r + 1]);
-    }
-  };
-  store_state_copy();
 
   // chunk c's x, B and C into buffer `stage`; rows past S are zero-filled
   auto load_chunk = [&](int c, int stage) {
@@ -527,7 +513,7 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
     const bf16* Bt = Bs + cur * kQ * NS;
     const bf16* Ct = Cs + cur * kQ * NS;
 
-    if constexpr (TF32) {
+    {
       // ---- T = state C^T on tf32 operands: this warp's 16 state rows
       // against every chunk row.  A is the fp32 state in the accumulators,
       // with each k-step's columns permuted as for att below (logical k t <->
@@ -571,8 +557,7 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
       }
     }
 
-    // ---- C B^T (keys up to this warp's last row) and, on bf16 operands,
-    // C state^T, sharing C
+    // ---- C B^T (keys up to this warp's last row)
     float cb[8][4], acc[8][4];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -592,23 +577,14 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
         tc::mma_bf16(cb[2 * np], ac, bb[0], bb[1]);
         tc::mma_bf16(cb[2 * np + 1], ac, bb[2], bb[3]);
       }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        if (TF32 || p_lo + np * 16 >= P16) break;
-        uint32_t bs[4];
-        tc::ldmatrix_x4(bs, Sb + (p_lo + np * 16 + (lane >> 4) * 8 + (lane & 7)) * NS +
-                                kk * 16 + ((lane >> 3) & 1) * 8);
-        tc::mma_bf16(acc[2 * np], ac, bs[0], bs[1]);
-        tc::mma_bf16(acc[2 * np + 1], ac, bs[2], bs[3]);
-      }
     }
     // ---- att = (C B^T) .* exp(cum_i - cum_j) .* dt_j for i >= j, as A
     // fragments; exp is evaluated only where i >= j (it overflows above).
-    // bf16: af[k-step of 16 keys].  tf32: af[k-step of 8 keys], with the keys
-    // of a k-step permuted (logical k t <-> key 2t, k t+4 <-> key 2t+1) so
-    // that the C fragment is the A fragment as it stands; the B operand below
-    // takes the same permutation.
-    uint32_t af[TF32 ? 8 : 4][4];
+    // af[k-step of 8 keys] in tf32, with the keys of a k-step permuted
+    // (logical k t <-> key 2t, k t+4 <-> key 2t+1) so that the C fragment is
+    // the A fragment as it stands; the B operand below takes the same
+    // permutation.
+    uint32_t af[8][4];
     {
       const float ci[2] = {cum[i_row[0]], cum[i_row[1]]};
 #pragma unroll
@@ -619,33 +595,26 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
           const int i = i_row[e >> 1], j = nt * 8 + 2 * t + (e & 1);
           v[e] = i >= j ? cb[nt][e] * __expf(ci[e >> 1] - cum[j]) * dts[j] : 0.f;
         }
-        if constexpr (TF32) {
-          af[nt][0] = tc::to_tf32(v[0]);
-          af[nt][1] = tc::to_tf32(v[2]);
-          af[nt][2] = tc::to_tf32(v[1]);
-          af[nt][3] = tc::to_tf32(v[3]);
-        } else {
-          af[nt / 2][(nt & 1) * 2] = tc::pack_bf16(v[0], v[1]);
-          af[nt / 2][(nt & 1) * 2 + 1] = tc::pack_bf16(v[2], v[3]);
-        }
+        af[nt][0] = tc::to_tf32(v[0]);
+        af[nt][1] = tc::to_tf32(v[2]);
+        af[nt][2] = tc::to_tf32(v[1]);
+        af[nt][3] = tc::to_tf32(v[3]);
       }
     }
     // ---- y = exp(cum_i) (C state^T) + att x
-    if constexpr (TF32) __syncthreads();   // Ts is complete
+    __syncthreads();   // Ts is complete
     {
       const float e0 = ecum[i_row[0]], e1 = ecum[i_row[1]];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        if constexpr (TF32) {
-          if (p_lo + nt * 8 >= P16) break;
-          const int p = p_lo + nt * 8 + 2 * t;
-          const float2 r0 = *reinterpret_cast<const float2*>(Ts + i_row[0] * TS + p);
-          const float2 r1 = *reinterpret_cast<const float2*>(Ts + i_row[1] * TS + p);
-          acc[nt][0] = r0.x;
-          acc[nt][1] = r0.y;
-          acc[nt][2] = r1.x;
-          acc[nt][3] = r1.y;
-        }
+        if (p_lo + nt * 8 >= P16) break;
+        const int p = p_lo + nt * 8 + 2 * t;
+        const float2 r0 = *reinterpret_cast<const float2*>(Ts + i_row[0] * TS + p);
+        const float2 r1 = *reinterpret_cast<const float2*>(Ts + i_row[1] * TS + p);
+        acc[nt][0] = r0.x;
+        acc[nt][1] = r0.y;
+        acc[nt][2] = r1.x;
+        acc[nt][3] = r1.y;
         acc[nt][0] *= e0;
         acc[nt][1] *= e0;
         acc[nt][2] *= e1;
@@ -661,21 +630,16 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
         uint32_t bx[4];
         tc::ldmatrix_x4_trans(bx, xt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * XS +
                                       p_lo + dp * 16 + (lane >> 4) * 8);
-        if constexpr (TF32) {
-          // bx[h] (bx[2 + h]) holds x at keys 8h + 2t and 8h + 2t + 1 of this
-          // k-step, y columns g (8 + g): b0 and b1 of the permuted k-step
-          // 2 kk + h.  bf16 values are exact as tf32.
+        // bx[h] (bx[2 + h]) holds x at keys 8h + 2t and 8h + 2t + 1 of this
+        // k-step, y columns g (8 + g): b0 and b1 of the permuted k-step
+        // 2 kk + h.  bf16 values are exact as tf32.
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const float2 b_lo = tc::unpack_bf16(bx[hh]), b_hi = tc::unpack_bf16(bx[2 + hh]);
-            tc::mma_tf32(acc[2 * dp], af[2 * kk + hh], __float_as_uint(b_lo.x),
-                         __float_as_uint(b_lo.y));
-            tc::mma_tf32(acc[2 * dp + 1], af[2 * kk + hh], __float_as_uint(b_hi.x),
-                         __float_as_uint(b_hi.y));
-          }
-        } else {
-          tc::mma_bf16(acc[2 * dp], af[kk], bx[0], bx[1]);
-          tc::mma_bf16(acc[2 * dp + 1], af[kk], bx[2], bx[3]);
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 b_lo = tc::unpack_bf16(bx[hh]), b_hi = tc::unpack_bf16(bx[2 + hh]);
+          tc::mma_tf32(acc[2 * dp], af[2 * kk + hh], __float_as_uint(b_lo.x),
+                       __float_as_uint(b_lo.y));
+          tc::mma_tf32(acc[2 * dp + 1], af[2 * kk + hh], __float_as_uint(b_hi.x),
+                       __float_as_uint(b_hi.y));
         }
       }
     }
@@ -688,7 +652,6 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
         if (i_row[r] < rows)
           store_pair(yp + (int64_t)(c0 + i_row[r]) * P + p, acc[nt][2 * r], acc[nt][2 * r + 1]);
     }
-    if constexpr (!TF32) __syncthreads();   // every warp is done reading the state copy
 
     // ---- state = exp(total) * state + x^T (B .* w), B .* w rounded to bf16
     {
@@ -715,7 +678,6 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
         tc::mma_bf16(st[2 * np + 1], ax, scale_bf16(bb[2], w0, w1), scale_bf16(bb[3], w2, w3));
       }
     }
-    store_state_copy();   // read after the next chunk's first barrier (bf16)
   }
 
 #pragma unroll
@@ -730,12 +692,12 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
   }
 }
 
-template <typename TD, typename TY, bool TF32, int PM>
+template <typename TD, typename TY, int PM>
 cudaError_t launch_tc(const void* x, const void* dt, const void* A, const void* Bm,
                       const void* Cm, const void* h0, void* y, void* state, int B, int H,
                       int G, int S, int P, int N, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<PM>();
-  auto kernel = ssd_scan_tc_kernel<TD, TY, TF32, PM>;
+  auto kernel = ssd_scan_tc_kernel<TD, TY, PM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -748,25 +710,13 @@ cudaError_t launch_tc(const void* x, const void* dt, const void* A, const void* 
   return cudaGetLastError();
 }
 
-template <typename TD, typename TY, bool TF32>
-cudaError_t dispatch_tc_p(const void* x, const void* dt, const void* A, const void* Bm,
-                          const void* Cm, const void* h0, void* y, void* state, int B, int H,
-                          int G, int S, int P, int N, cudaStream_t stream) {
-  if (P <= 64)
-    return launch_tc<TD, TY, TF32, 64>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N,
-                                           stream);
-  return launch_tc<TD, TY, TF32, 128>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N,
-                                          stream);
-}
-
 template <typename TD, typename TY>
-cudaError_t dispatch_tc(int tf32, const void* x, const void* dt, const void* A,
-                        const void* Bm, const void* Cm, const void* h0, void* y, void* state,
-                        int B, int H, int G, int S, int P, int N, cudaStream_t stream) {
-  return tf32 ? dispatch_tc_p<TD, TY, true>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S,
-                                                P, N, stream)
-                  : dispatch_tc_p<TD, TY, false>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S,
-                                                 P, N, stream);
+cudaError_t dispatch_tc(const void* x, const void* dt, const void* A, const void* Bm,
+                        const void* Cm, const void* h0, void* y, void* state, int B, int H,
+                        int G, int S, int P, int N, cudaStream_t stream) {
+  if (P <= 64)
+    return launch_tc<TD, TY, 64>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, stream);
+  return launch_tc<TD, TY, 128>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, stream);
 }
 
 // ---- wg: bf16 on Hopper's warpgroup MMA, fed by TMA, split over the sequence --
@@ -1262,32 +1212,30 @@ cudaError_t occupancy(Kernel kernel, int threads, size_t smem, int* smem_bytes,
 // x_dtype (x, B, C), y_dtype and dt_dtype: 0 = float32, 1 = bfloat16.
 // variant: 0 = fma (CUDA cores, any types, y in x's type), 1 = tc (tensor
 // cores: bfloat16 x, B, C with P % 8 == 0 and N % 8 == 0 only; y bfloat16 or
-// float32; tf32 = 1 takes att x and C state^T on tf32 operands).  Other
-// combinations return cudaErrorInvalidValue.  A, h0 and
+// float32).  Other combinations return cudaErrorInvalidValue.  A, h0 and
 // state are float32; h0 may be null (zero initial state).  P <= 128,
 // N <= 128, H % G == 0, S >= 1.  Returns a cudaError_t (0 on success);
 // launches on `stream` and does not synchronise.
 extern "C" int repro_ssd_scan_fwd(const void* x, const void* dt, const void* A,
                                   const void* Bm, const void* Cm, const void* h0,
                                   void* y, void* state, int x_dtype, int y_dtype,
-                                  int dt_dtype, int variant, int tf32, int B, int H,
-                                  int G, int S, int P, int N, void* stream) {
+                                  int dt_dtype, int variant, int B, int H, int G, int S,
+                                  int P, int N, void* stream) {
   if (B < 1 || H < 1 || G < 1 || H % G != 0 || S < 1 || P < 1 || P > 128 ||
       N < 1 || N > kNM || B > 65535 || (variant != 0 && variant != 1) ||
-      (y_dtype != 0 && y_dtype != 1) || (tf32 != 0 && tf32 != 1) ||
-      (variant == 0 && tf32))
+      (y_dtype != 0 && y_dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
     if (x_dtype != 1 || P % 8 != 0 || N % 8 != 0) return (int)cudaErrorInvalidValue;
     if (dt_dtype == 0 && y_dtype == 1)
-      return (int)dispatch_tc<float, bf16>(tf32, x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, s);
+      return (int)dispatch_tc<float, bf16>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, s);
     if (dt_dtype == 1 && y_dtype == 1)
-      return (int)dispatch_tc<bf16, bf16>(tf32, x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, s);
+      return (int)dispatch_tc<bf16, bf16>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, s);
     if (dt_dtype == 0 && y_dtype == 0)
-      return (int)dispatch_tc<float, float>(tf32, x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, s);
+      return (int)dispatch_tc<float, float>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, s);
     if (dt_dtype == 1 && y_dtype == 0)
-      return (int)dispatch_tc<bf16, float>(tf32, x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, s);
+      return (int)dispatch_tc<bf16, float>(x, dt, A, Bm, Cm, h0, y, state, B, H, G, S, P, N, s);
     return (int)cudaErrorInvalidValue;
   }
   if (y_dtype != x_dtype) return (int)cudaErrorInvalidValue;
@@ -1353,9 +1301,9 @@ extern "C" int repro_ssd_scan_occupancy(int variant, int P, int* smem_bytes,
     return (int)cudaErrorInvalidValue;
   }
   if (variant == 1)
-    return P <= 64 ? (int)occupancy(ssd_scan_tc_kernel<float, bf16, false, 64>, 64 / 16 * 32,
+    return P <= 64 ? (int)occupancy(ssd_scan_tc_kernel<float, bf16, 64>, 64 / 16 * 32,
                                     tc_smem_bytes<64>(), smem_bytes, blocks_per_sm)
-                   : (int)occupancy(ssd_scan_tc_kernel<float, bf16, false, 128>, 128 / 16 * 32,
+                   : (int)occupancy(ssd_scan_tc_kernel<float, bf16, 128>, 128 / 16 * 32,
                                     tc_smem_bytes<128>(), smem_bytes, blocks_per_sm);
   return P <= 64 ? (int)occupancy(ssd_scan_kernel<float, float, 64>, kThreads,
                                   smem_floats<64>() * sizeof(float), smem_bytes, blocks_per_sm)

@@ -173,8 +173,8 @@ def decode_attention(q, k, v, *, lo, hi, softmax_scale=None, valid=None):
 
 def _launch(q, k, v, *, lo, hi, softmax_scale=None, splits=None, valid=None):
     """Launch K3 on checked CUDA tensors, with ``k3_splits``'s split count
-    or ``splits`` (chip_smoke.py times other counts through here), and the
-    device's valid length ``valid`` or none."""
+    or ``splits`` (tests/test_torch_kernels_card.py holds other counts
+    through here), and the device's valid length ``valid`` or none."""
     if q.device.type != "cuda":
         raise ValueError(f"no K3 kernel for device {q.device}")
     if type(q) is not torch.Tensor or type(k) is not torch.Tensor or type(v) is not torch.Tensor:

@@ -155,9 +155,9 @@ def work(q_shape, kv_len, causal=True, window=0, itemsize=2):
 
 def _launch(q, k, v, variant, *, causal, window, kv_valid, softmax_scale):
     """Launch ``variant`` ("wg", "tc" or "fma") of K1 on checked CUDA tensors.
-    The serve path takes ``k1_variant``'s choice; chip_smoke.py also holds
-    and times "tc" and "fma" on bf16 inputs through here.  A variant that
-    cannot take the call raises."""
+    The serve path takes ``k1_variant``'s choice; tests/test_torch_kernels_card.py
+    also holds "tc" where "wg" serves through here.  A variant that cannot
+    take the call raises."""
     if variant not in _VARIANT_CODES or not _takes(variant, q.dtype, q.shape[3]):
         raise ValueError(f"K1 variant {variant!r} does not take {q.dtype} at "
                          f"head_dim {q.shape[3]}")

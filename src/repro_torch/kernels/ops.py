@@ -12,7 +12,6 @@ from __future__ import annotations
 from repro_torch.core.scope import named_scope
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softmax_scale=None):
@@ -46,14 +45,3 @@ def copy_bytes(*views) -> int:
     """Bytes that ``.contiguous()`` reads and writes to lay ``views`` out."""
     return sum(2 * t.numel() * t.element_size() for t in views if not t.is_contiguous())
 
-
-def ssd_scan(x, dt, A, B_in, C_in, *, chunk=_ssd.DEFAULT_CHUNK):
-    """Model layout: x [B,S,H,P]; dt [B,S,H]; B_in/C_in [B,S,G,N].
-
-    Returns (y [B,S,H,P], state [B,H,P,N])."""
-    xh = x.movedim(1, 2).contiguous()            # [B,H,S,P]
-    dth = dt.movedim(1, 2).contiguous()          # [B,H,S]
-    Bh = B_in.movedim(1, 2).contiguous()         # [B,G,S,N]
-    Ch = C_in.movedim(1, 2).contiguous()
-    y, state = _ssd.ssd_scan_hmajor(xh, dth, A, Bh, Ch, chunk=chunk)
-    return y.movedim(1, 2), state

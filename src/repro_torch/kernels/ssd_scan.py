@@ -57,13 +57,9 @@ WG_DIMS = (64, 128)    # the P and N that "wg" takes
 WG_CHUNK = 64          # the kernels' own chunk length
 WG_MIN_CHUNKS = 4      # the least length of a segment, in chunks
 # blocks of the "wg" outputs kernel that fit on an SM (at N = 128), by P:
-# what its shared memory allows (chip_smoke.py reads the card's answer)
+# what its shared memory allows (tests/test_torch_kernels_card.py reads the
+# card's answer)
 WG_BLOCKS_PER_SM = {64: 2, 128: 1}
-# The tc kernel takes att @ x and C @ state^T on tf32 operands: on bf16
-# operands the mamba2 serve shape's y, before it is stored in bf16, was off
-# by 3.0e-2 on an H100, more than half of the 5e-2 tolerance (PERF.md).
-# The bf16-operand kernel stays for chip_smoke.py to measure beside it.
-TC_TF32 = True
 
 
 def k2_variant(x_dtype, P, N):
@@ -98,8 +94,8 @@ def _lib():
     fn = lib.repro_ssd_scan_fwd
     if fn.argtypes is None:
         # x, dt, A, B, C, h0, y, state; x_dtype, y_dtype, dt_dtype, variant,
-        # tf32, B, H, G, S, P, N; stream
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        # B, H, G, S, P, N; stream
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -300,16 +296,14 @@ def _takes(variant, x_dtype, P, N):
     return variant == "fma"
 
 
-def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=TC_TF32, segments=None):
+def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, segments=None):
     """Launch ``variant`` ("wg", "tc" or "fma") of K2 on checked CUDA
     tensors, with y in ``y_dtype``.  The serve path takes ``k2_variant``'s
-    choice and y in x's type; chip_smoke.py also runs "tc" where "wg" serves
-    (the before-time on the same inputs), the "fma" kernel on bf16 inputs,
-    the "tc" kernel with y in float32 (y before it is rounded to bf16) and
-    with ``tf32`` off (every product on bf16 operands) through here, to
-    split the tensor-core kernel's error by its source, and "wg" with its
-    ``segments`` set (default: ``k2_segments``'s count for this card).  A
-    variant, y type or segment count that cannot take the call raises."""
+    choice and y in x's type; tests/test_torch_kernels_card.py also runs
+    "tc" with y in float32 (y before it is rounded to bf16) through here,
+    and "wg" with its ``segments`` set (default: ``k2_segments``'s count for
+    this card).  A variant, y type or segment count that cannot take the
+    call raises."""
     if not _takes(variant, x.dtype, x.shape[3], B_in.shape[3]):
         raise ValueError(f"K2 variant {variant!r} does not take {x.dtype} at "
                          f"P={x.shape[3]}, N={B_in.shape[3]}")
@@ -319,7 +313,6 @@ def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=TC_TF32, segments=N
     if segments is not None and (variant != "wg" or not 1 <= segments <= n_chunks):
         raise ValueError(f"K2 {variant} does not take {segments} segments of "
                          f"{n_chunks} chunks")
-    tf32 = tf32 and variant == "tc"
     if _wants_grad(x, dt, A, B_in, C_in, h0):
         raise RuntimeError("K2 launched on inputs that require grad would return outputs "
                            "without a gradient: call ssd_scan_hmajor, which takes SSDScanFn")
@@ -362,7 +355,7 @@ def _launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=TC_TF32, segments=N
             err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
                          C_in.data_ptr(), h0_ptr, y.data_ptr(), state.data_ptr(),
                          _DTYPE_CODES[x.dtype], _DTYPE_CODES[y_dtype], _DTYPE_CODES[dt.dtype],
-                         _VARIANT_CODES[variant], int(tf32), Bz, H, G, S, P, N, stream)
+                         _VARIANT_CODES[variant], Bz, H, G, S, P, N, stream)
     if err != 0:
         raise RuntimeError(f"K2 SSD scan ({variant}) launch failed: CUDA error {err}")
     ssd_scan_hmajor.launches += 1

@@ -8,8 +8,8 @@ abstract ShapeDtypeStructs to lower, the port's holds tensors: on
 no storage, DTensors on a distributed mesh, and ``Cell.run()`` runs the
 step abstractly (the dry run); on a real device (a one-device mesh on the
 card, or a gloo mesh for prefill and decode) the weights are drawn from
-``seed`` and ``run()`` computes.  launch/dryrun.py and chip_smoke.py build cells through this
-module, so the dry run runs exactly the code that trains and serves.
+``seed`` and ``run()`` computes.  launch/dryrun.py and tests/test_torch_card_paths.py build
+cells through this module, so the dry run runs exactly the code that trains and serves.
 
 ``global_batch`` cuts a shape's batch (to fit one card); JAX's builder has
 no such cut.

@@ -4,7 +4,7 @@ functions on the same numpy inputs, at the JAX tests' tolerances
 (attention 1e-5, tests/test_attention.py:28; SSD 1e-4, tests/test_ssm.py:32;
 rms_norm 1e-5).  Everything here runs on the CPU (``device="cpu"``), where
 ``ssd_chunked`` is K2's plain version; the card runs the same suite in
-chip_smoke.py."""
+tests/test_torch_card_paths.py."""
 import shutil
 
 import numpy as np

@@ -32,6 +32,9 @@
   products recomputed under "dots" as JAX recomputes them, each shard's
   kv head projected once for its two q heads, and the decode's kv
   projections split over the model axis, as XLA splits them).
+* ``slow``: internlm2-1.8b train_4k on 16x16 and 2x16x16, and phi3.5-moe's
+  two cells again, each against JAX's record in full (FLOPs, plan, and
+  the collectives of a train or a decode step).
 """
 import json
 import os
@@ -42,6 +45,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_dryrun import derived_delta, jax_record, port_records  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 
 HERE = os.path.dirname(__file__)
@@ -108,6 +112,31 @@ def test_phi35_full_width_flops_match_jax(tmp_path, shape, delta):
     jrec = _jax_record("phi3.5-moe-42b-a6.6b", shape)
     assert rec["plan"] == jrec["plan"] and rec["accum_steps"] == jrec["accum_steps"]
     assert rec["roofline"]["hlo_flops"] - jrec["roofline"]["hlo_flops"] == delta
+
+
+# the full-width cells whose checks no test of these files makes, each held
+# in full: per-device FLOPs equal JAX's record's plus what
+# ``analysis.parity`` derives, JAX's plan, an all-reduce in a train step
+# (data-parallel gradients), a decode step's collectives within twice JAX's.
+# 53-97 s a cell on 8 host cores.
+MORE_CELLS = [("internlm2-1.8b", "train_4k", "16x16"), ("internlm2-1.8b", "train_4k", "2x16x16"),
+              ("phi3.5-moe-42b-a6.6b", "train_4k", "16x16"),
+              ("phi3.5-moe-42b-a6.6b", "decode_32k", "16x16")]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("cell", MORE_CELLS, ids="-".join)
+def test_a_full_width_cell_holds_jax_record(cell):
+    rec = port_records([cell])[cell]
+    assert rec["status"] == "ok", rec.get("error")
+    jrec = jax_record(*cell, accum=rec["accum_steps"])
+    assert rec["plan"] == jrec["plan"]
+    t, jt = rec["roofline"], jrec["roofline"]
+    assert t["hlo_flops"] > 0 and t["hlo_flops"] - jt["hlo_flops"] == derived_delta(rec)
+    if cell[1] == "train_4k":
+        assert "all-reduce" in t["collective_detail"]
+    else:
+        assert t["collective_bytes"] <= 2 * jt["collective_bytes"]
 
 
 def test_long_context_on_full_attention_is_skipped_with_jax_reason():

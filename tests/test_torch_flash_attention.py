@@ -5,11 +5,9 @@ JAX ``attention_ref`` on every shape, causal, window and dtype case of
 tests/test_kernels.py (atol = rtol 2e-5 for f32, 3e-2 for bf16, that
 test's own), and once against the Pallas kernel in interpret mode.  The
 CUDA kernel itself is held against the plain version on the card by
-tests/test_torch_kernels_card.py and by chip_smoke.py.
+tests/test_torch_kernels_card.py.
 """
 import functools
-import importlib.util
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +16,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_card import agreement, row_share  # noqa: E402
 from repro.kernels.ref import attention_ref as jax_attention_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -125,23 +124,20 @@ def test_cpu_calls_never_count_a_launch():
     assert fa.flash_attention_hmajor.launches == 0
 
 
-def test_chip_smoke_row_bound_sees_what_the_element_bound_misses():
-    """chip_smoke.py also holds K1's bf16 output at phase 11's new shapes
-    within 3e-2 of each row's own norm.  At whisper's encoder shape (cut to
-    one batch entry and two heads; 1500 keys, non-causal) an output 5% off
-    everywhere passes atol = rtol = 3e-2 entry by entry but not the row
-    bound, and one without the ragged last 28 keys fails both."""
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+def test_card_row_bound_sees_what_the_element_bound_misses():
+    """tests/test_torch_kernels_card.py also holds K1's bf16 output at the
+    families' and cells' shapes within 3e-2 of each row's own norm.  At
+    whisper's encoder shape (cut to one batch entry and two heads; 1500
+    keys, non-causal) an output 5% off everywhere passes atol = rtol = 3e-2
+    entry by entry but not the row bound, and one without the ragged last
+    28 keys fails both."""
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _qkv_hmajor(1, 1500, 1500, 2, 2, 64, seed=9))
     ref = fa.flash_attention_hmajor_plain(q, k, v, causal=False).float()
-    assert smoke._row_share(ref, ref, 3e-2) == 0.0
+    assert row_share(ref, ref, 3e-2) == 0.0
     off = ref * 1.05
-    assert smoke._agreement(off, ref, 3e-2)[2] == 0
-    assert smoke._row_share(off, ref, 3e-2) > 1.5
+    assert agreement(off, ref, 3e-2)[2] == 0
+    assert row_share(off, ref, 3e-2) > 1.5
     cut = fa.flash_attention_hmajor_plain(q, k, v, causal=False, kv_valid=1472).float()
-    assert smoke._agreement(cut, ref, 3e-2)[2] > 0
-    assert smoke._row_share(cut, ref, 3e-2) > 10
+    assert agreement(cut, ref, 3e-2)[2] > 0
+    assert row_share(cut, ref, 3e-2) > 10

@@ -87,7 +87,11 @@ def _forbidden_imports(path):
 
 
 def test_no_source_of_the_port_imports_jax_or_repro_at_any_depth():
-    files = sorted((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # and the tests that run on the card, with their helper: a machine with
+    # a card and no jax runs them
+    tests = ROOT / "tests"
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + [tests / "_torch_card.py"] + sorted(
+        f for f in tests.glob("test_torch_*.py") if "@pytest.mark.cuda" in f.read_text())
     assert len(files) > 40
     bad = {str(f.relative_to(ROOT)): hits for f in files if (hits := _forbidden_imports(f))}
     assert not bad, bad

@@ -114,8 +114,8 @@ def test_k1_refuses_a_variant_that_cannot_take_the_call():
 @pytest.mark.parametrize("hd", [64, 128])
 def test_k1_tc_stays_callable_where_wg_serves(hd):
     """At the head dims "wg" takes, "tc" is still a variant that takes the
-    call (chip_smoke.py holds and times it there), so on the CPU it gets as
-    far as the device check."""
+    call (tests/test_torch_kernels_card.py holds it there), so on the CPU it
+    gets as far as the device check."""
     qb = torch.zeros(1, 2, 8, hd, dtype=BF16)
     assert fa.k1_variant(BF16, hd) == "wg"
     for variant in ("tc", "fma"):

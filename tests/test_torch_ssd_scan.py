@@ -3,10 +3,10 @@
 On the CPU the wrapper runs the kernel's plain version (the chunked block
 decomposition); it is held against JAX ``ssd_ref`` (the exact recurrence)
 on every case of tests/test_kernels.py:66-101 (atol = rtol 1e-4 in f32,
-5e-2 for bf16 inputs, that test's own), and once, through
-``ops.ssd_scan``, against the Pallas kernel in interpret mode.  The CUDA
+5e-2 for bf16 inputs, that test's own), and once, through the model's
+``ssd_chunked``, against the Pallas kernel in interpret mode.  The CUDA
 kernel itself is held against the plain version on the card by
-tests/test_torch_kernels_card.py and by chip_smoke.py.
+tests/test_torch_kernels_card.py.
 """
 import numpy as np
 import pytest
@@ -16,9 +16,9 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.ref import ssd_ref as jax_ssd_ref  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ks  # noqa: E402
 from repro_torch.kernels.ref import ssd_ref  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 
 KERNEL_CASES = [             # B, S, H, G, P, N, chunk (tests/test_kernels.py:66-71)
     (1, 64, 4, 1, 32, 16, 16),
@@ -74,8 +74,8 @@ def test_plain_k2_bf16_inputs_match_jax_ssd_ref():
 
 
 def test_port_ssd_ref_matches_jax_ssd_ref_with_h0():
-    """The port's own oracle (the one chip_smoke.py holds K2 to) against
-    JAX's, from a non-zero initial state."""
+    """The port's own oracle (the one tests/test_torch_kernels_card.py
+    holds K2 to) against JAX's, from a non-zero initial state."""
     arrays = _inputs_hmajor(2, 20, 4, 2, 8, 16, seed=2)
     h0 = (np.random.default_rng(3).standard_normal((2, 4, 8, 16)) * 0.5).astype(np.float32)
     y, st = ssd_ref(*_t(arrays), h0=torch.from_numpy(h0))
@@ -89,14 +89,15 @@ def test_port_ssd_ref_matches_jax_ssd_ref_with_h0():
 
 
 def test_ops_ssd_scan_matches_pallas_interpret():
-    """The model-layout wrapper against the Pallas kernel in interpret mode."""
+    """The model's ``ssd_chunked``, K2 in the model's layout, against the
+    Pallas kernel in interpret mode."""
     from repro.kernels.ops import ssd_scan as jax_ops_ssd_scan
     x, dt, A, Bi, Ci = _inputs_hmajor(1, 40, 4, 2, 8, 16, seed=4)
     x, dt = np.moveaxis(x, 1, 2).copy(), np.moveaxis(dt, 1, 2).copy()   # [B,S,H,P], [B,S,H]
     Bi, Ci = np.moveaxis(Bi, 1, 2).copy(), np.moveaxis(Ci, 1, 2).copy()  # [B,S,G,N]
     yr, sr = jax_ops_ssd_scan(*(jnp.asarray(a) for a in (x, dt, A, Bi, Ci)), chunk=16,
                               interpret=True)
-    y, st = ops.ssd_scan(*_t((x, dt, A, Bi, Ci)), chunk=16)
+    y, st = ssd_chunked(*_t((x, dt, A, Bi, Ci)), chunk=16)
     assert y.shape == x.shape and st.shape == (1, 4, 8, 16)
     np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(st.numpy(), np.asarray(sr), atol=1e-4, rtol=1e-4)
@@ -129,6 +130,6 @@ def test_cpu_calls_never_count_a_launch():
     ks.ssd_scan_hmajor.launches = 0
     arrays = _inputs_hmajor(1, 16, 2, 1, 8, 8, seed=6)
     ks.ssd_scan_hmajor(*_t(arrays), chunk=8)
-    ops.ssd_scan(torch.zeros(1, 16, 2, 8), torch.zeros(1, 16, 2), -torch.ones(2),
-                 torch.zeros(1, 16, 1, 8), torch.zeros(1, 16, 1, 8), chunk=8)
+    ssd_chunked(torch.zeros(1, 16, 2, 8), torch.zeros(1, 16, 2), -torch.ones(2),
+                torch.zeros(1, 16, 1, 8), torch.zeros(1, 16, 1, 8), chunk=8)
     assert ks.ssd_scan_hmajor.launches == 0

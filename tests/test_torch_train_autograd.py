@@ -56,7 +56,7 @@ def _ssd_inputs(B=1, H=4, G=2, S=7, P=3, N=2, dtype=torch.float64, seed=0):
 
 
 def test_ssdscanfn_backward_is_the_gradient_of_the_plain_scan(monkeypatch):
-    def plain_launch(x, dt, A, B_in, C_in, h0, variant, y_dtype, tf32=True):
+    def plain_launch(x, dt, A, B_in, C_in, h0, variant, y_dtype):
         assert variant == "fma" and y_dtype == x.dtype
         assert not torch.is_grad_enabled()           # Function.forward runs without grad
         return ssd_scan.ssd_scan_hmajor_plain(x, dt, A, B_in, C_in, chunk=3, h0=h0)
