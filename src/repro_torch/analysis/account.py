@@ -13,7 +13,10 @@ shapes are not counted.  It accumulates:
 
     * dot FLOPs           (2 * M * N * K for mm, addmm, bmm, baddbmm, mv, dot)
     * kernel FLOPs        (K1 and K2 count their own work: ``work`` of
-                           kernels/flash_attention.py and kernels/ssd_scan.py)
+                           kernels/flash_attention.py and kernels/ssd_scan.py;
+                           K4, kernels/causal_conv.py, counts its bytes and
+                           no FLOPs: its multiply-adds are elementwise, which
+                           hlo.py counts none of in the jnp conv it replaces)
     * collective bytes    (per kind, max of result and operand bytes, as
                            hlo.py counts them)
     * transcendentals     (elements of exp, log, logistic, tanh, rsqrt, sqrt,
@@ -168,7 +171,9 @@ def dot_flops(func, args) -> float:
 def _kernel_transcendentals(func, args) -> float:
     """K2's exps, as the chunked scan computes them: per chunk of Q rows
     and head, the Q x Q decays, the Q decays from the chunk's start and to
-    its end, and the chunk's total."""
+    its end, and the chunk's total; K4's SiLU, one logistic a value."""
+    if func._schema.name == "repro_torch::causal_conv_silu":
+        return float(sum(x.numel() for x in args[0]))
     if func._schema.name != "repro_torch::ssd_scan_hmajor":
         return 0.0
     B, H, S, _ = args[0].shape
@@ -177,7 +182,7 @@ def _kernel_transcendentals(func, args) -> float:
 
 
 def _kernel_work(func, args):
-    """(flops, bytes) of a K1 or K2 call, or None."""
+    """(flops, bytes) of a K1, K2 or K4 call, or None."""
     name = func._schema.name
     if name == "repro_torch::flash_attention_hmajor":
         from repro_torch.kernels.flash_attention import work
@@ -190,6 +195,12 @@ def _kernel_work(func, args):
         return work(tuple(x.shape), B_in.shape[1], B_in.shape[3],
                     x_itemsize=x.element_size(), dt_itemsize=dt.element_size(),
                     Q=args[6])
+    if name == "repro_torch::causal_conv_silu":      # elementwise: bytes, no FLOPs
+        from repro_torch.kernels.causal_conv import work
+        xs, ws = args[0], args[1]
+        B, S = xs[0].shape[:2]
+        return 0.0, work((B, S, sum(x.shape[2] for x in xs)), ws[0].shape[0],
+                         itemsize=xs[0].element_size())[1]
     return None
 
 

@@ -5,11 +5,14 @@ kernels' head-major layout and back, as ``repro.kernels.ops`` does.
 K1's call is the "k1" span (``core.scope``), which counts the bytes of
 its layout copies (``copy_bytes``); K3's is the "k3" span, which counts the
 bytes of k and v it reads (``bytes``).  K3 reads the model's layout through
-its strides and copies nothing.
+its strides and copies nothing.  K4's call is the "k4" span, which notes its
+``rows`` (B x S), ``channels`` (all its tensors'), ``width`` and
+``itemsize``: K4 reads the model's [B, S, C] as it is.
 """
 from __future__ import annotations
 
 from repro_torch.core.scope import named_scope
+from repro_torch.kernels import causal_conv as _cc
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 
@@ -39,6 +42,17 @@ def decode_attention(q, k, v, *, lo, hi, softmax_scale=None, valid=None):
                 "bytes": per_key * (_da.key_end(lo, hi, got["valid"]) - lo)})
         return _da.decode_attention(q, k, v, lo=lo, hi=hi, softmax_scale=softmax_scale,
                                     valid=valid)
+
+
+def causal_conv_silu(parts):
+    """[(x [B,S,C], w [W,C], b [C]), ...] -> [silu(causal conv of x) [B,S,C]]
+    through K4, one launch for all the parts."""
+    with named_scope("k4") as sp:
+        if sp.recording:
+            x, w, _ = parts[0]
+            sp.note(rows=x.shape[0] * x.shape[1], channels=sum(p[0].shape[2] for p in parts),
+                    width=w.shape[0], itemsize=x.element_size())
+        return _cc.causal_conv_silu(parts)
 
 
 def copy_bytes(*views) -> int:

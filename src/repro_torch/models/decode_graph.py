@@ -10,7 +10,11 @@ shape, strides, dtype) and the token's shape, and is released when one of
 those tensors is freed: no graph outlives its batch, and no copy of a cache
 or a state is kept.  Each graph is captured into a memory pool of its own,
 which goes with it, on the one capture stream of its device (a stream
-gets a cuBLAS workspace of its own, kept for the process).
+gets a cuBLAS workspace of its own, kept for the process).  The caching
+allocator cannot hand its cached blocks back to the device while a capture
+runs, so a capture that starts with less than ``CAPTURE_HEADROOM`` free on
+the device (a long prefill's temporaries left cached, as at granite-4.0-h-
+small's 4 x 32k prefills) hands them back first.
 
 The step reads its position from one int64 on the device, which the host
 writes before each replay (it still checks the int against the cache's
@@ -36,6 +40,7 @@ from repro_torch.kernels.decode_attention import HEAD_DIMS as K3_HEAD_DIMS
 from repro_torch.models.moe import SLOT_TOKENS
 
 COUNTS = {"capture": 0, "replay": 0, "eager": 0}
+CAPTURE_HEADROOM = 8 << 30      # bytes free on the device below which a capture empties the cache
 _STREAMS: dict = {}     # device index -> the stream every capture there runs on
 
 
@@ -155,6 +160,8 @@ class DecodeGraphs:
             g.token = torch.zeros_like(token)
             g.pos = torch.zeros(1, dtype=torch.long, device=dev)
         g.graph = torch.cuda.CUDAGraph()
+        if torch.cuda.mem_get_info(dev)[0] < CAPTURE_HEADROOM:
+            torch.cuda.empty_cache()
         stream, here = _STREAMS[i], torch.cuda.current_stream(dev)
         stream.wait_stream(here)
         with torch.cuda.stream(stream):

@@ -6,7 +6,10 @@ on the card through the hand-written K2 kernel, on the CPU through its
 plain chunked block decomposition (``kernels.ssd_scan``).  Decode uses the O(1)
 recurrence: h = h * exp(A dt) + dt * B (x) x ; y = C . h.  Dtypes follow
 the JAX block step by step (softplus, silu, the skip term, the gate and the
-norm in float32; the conv tail cached in float32).
+norm in float32; the conv tail cached in float32).  In prefill the causal
+conv and its SiLU run on the card through the hand-written K4 kernel
+(``kernels.causal_conv``) when ``k4_refusal`` finds nothing against it, in
+f32 and rounded once; elsewhere through the plain eager passes.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.scope import named_scope
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.causal_conv import (MAX_WIDTH as K4_MAX_WIDTH, VEC as K4_VEC,
+                                             causal_conv_plain)
 from repro_torch.kernels.ops import copy_bytes
 from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
 from repro_torch.models.layers import rms_norm
@@ -141,12 +147,35 @@ def causal_conv(x, w, b, halo=None):
         def local(loc, w, b):
             return causal_conv(loc, w, b, _halo(loc, w.shape[0] - 1, x, seq))
         return per_shard(local, (pl, chan(1), chan(0)), pl)(x, w, b)
-    W, S = w.shape[0], x.shape[1]
-    xp = torch.cat([halo.to(x.dtype), x], dim=1) if halo is not None else F.pad(x, (0, 0, W - 1, 0))
-    out = 0
-    for i in range(W):
-        out = out + xp[:, i:i + S] * w[i]
-    return out + b
+    return causal_conv_plain(x, w, b, halo)
+
+
+def k4_refusal(parts) -> str | None:
+    """Why K4 does not take a prefill's conv and SiLU over ``parts`` (the
+    layer's (x, w, b) triples of x, B and C), or None when it does.  A rule
+    on the inputs alone: no DTensor (a mesh keeps the per-shard plain path),
+    bfloat16 x, w and b, a width of at most ``K4_MAX_WIDTH``, channels in
+    multiples of ``K4_VEC``, no gradient wanted (the JAX package has no conv
+    kernel whose backward a K4 backward would mirror), on a CUDA card."""
+    from torch.distributed.tensor import DTensor
+    tensors = [t for part in parts for t in part]
+    if any(isinstance(t, DTensor) for t in tensors):
+        return "a DTensor (a mesh)"
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        return "dtype"
+    if any(w.shape[0] > K4_MAX_WIDTH for _, w, _ in parts):
+        return "width"
+    if any(x.shape[-1] % K4_VEC for x, _, _ in parts):
+        return "channels"
+    if torch.is_grad_enabled():
+        return "a gradient is wanted"
+    if not _on_card(*tensors):
+        return "not on a CUDA card"
+    return None
+
+
+def _on_card(*tensors) -> bool:
+    return all(t.is_cuda for t in tensors)
 
 
 def _halo(loc, n, x, dims):
@@ -236,32 +265,38 @@ def mamba_block(u, p, cfg: ModelConfig, h0=None, conv0=None, decode: bool = Fals
         dt = u @ p["w_dt"]                                            # [B,S,nh]
         dt = F.softplus(dt.float() + p["dt_bias"].float())
 
-        with named_scope("conv"):
+        def silu(a):
+            return F.silu(a.float()).to(u.dtype)
+
+        with named_scope("conv") as sp:
             if decode:
                 xbc_raw = torch.cat([xc, Bp, Cp], dim=-1)
                 x0, B0, C0 = conv0[..., :di], conv0[..., di:di + GN], conv0[..., di + GN:]
                 xc, _ = causal_conv_step(x0, xc[:, 0], p["conv_w"], p["conv_b"])
                 Bp, _ = causal_conv_step(B0, Bp[:, 0], p["conv_wB"], p["conv_bB"])
                 Cp, _ = causal_conv_step(C0, Cp[:, 0], p["conv_wC"], p["conv_bC"])
-                xc, Bp, Cp = xc[:, None], Bp[:, None], Cp[:, None]
+                xc, Bp, Cp = silu(xc[:, None]), silu(Bp[:, None]), silu(Cp[:, None])
                 ct = torch.promote_types(conv0.dtype, xbc_raw.dtype)
                 conv_new = torch.cat([conv0.to(ct), xbc_raw.to(ct)], dim=1)[:, 1:]
             else:
-                xc_raw, B_raw, C_raw = xc, Bp, Cp
-                xc = causal_conv(xc, p["conv_w"], p["conv_b"])
-                Bp = causal_conv(Bp, p["conv_wB"], p["conv_bB"])
-                Cp = causal_conv(Cp, p["conv_wC"], p["conv_bC"])
+                raws = (xc, Bp, Cp)
+                parts = [(xc, p["conv_w"], p["conv_b"]), (Bp, p["conv_wB"], p["conv_bB"]),
+                         (Cp, p["conv_wC"], p["conv_bC"])]
+                why = k4_refusal(parts)
+                if sp.recording and why is None:
+                    sp.note(impl="k4")
+                elif sp.recording:
+                    sp.note(impl="plain", why=why)
+                if why is None:
+                    xc, Bp, Cp = kops.causal_conv_silu(parts)
+                else:
+                    xc, Bp, Cp = (silu(causal_conv(*part)) for part in parts)
                 # the raw rows' tail, cut before the channels are joined: on a mesh
                 # only the tail of the model-sharded x channels is gathered
                 W1 = s.conv_width - 1
-                raw = (t[:, -W1:] if S >= W1 else F.pad(t, (0, 0, W1 - S, 0))
-                       for t in (xc_raw, B_raw, C_raw))
+                raw = (t[:, -W1:] if S >= W1 else F.pad(t, (0, 0, W1 - S, 0)) for t in raws)
                 conv_new = torch.cat(list(raw), dim=-1).float()
 
-        def silu(a):
-            return F.silu(a.float()).to(u.dtype)
-
-        xc, Bp, Cp = silu(xc), silu(Bp), silu(Cp)
         if cut_bc:      # the SSD takes B and C whole over the heads' axis
             Bp, Cp = model_cut(Bp, None), model_cut(Cp, None)
         xh = xc.reshape(B_, S, nh, P)

@@ -45,22 +45,25 @@ def assert_rows_within(got, ref, tol):
 class Launches:
     """Every kernel's launches from when the object is made, read from its
     public wrapper's counters: ``.total()`` by kernel, ``.by_variant()`` by
-    kernel and variant."""
+    kernel and variant (none for K4, which has one)."""
 
     def __init__(self):
+        from repro_torch.kernels.causal_conv import causal_conv_silu
         from repro_torch.kernels.decode_attention import decode_attention
         from repro_torch.kernels.flash_attention import flash_attention_hmajor
         from repro_torch.kernels.ssd_scan import ssd_scan_hmajor
         self.wrappers = {"K1": flash_attention_hmajor, "K2": ssd_scan_hmajor,
-                         "K3": decode_attention}
+                         "K3": decode_attention, "K4": causal_conv_silu}
         self.start = self._read()
 
     def _read(self):
-        return {k: (w.launches, dict(w.launches_by_variant)) for k, w in self.wrappers.items()}
+        return {k: (w.launches, dict(getattr(w, "launches_by_variant", {})))
+                for k, w in self.wrappers.items()}
 
     def total(self):
         return {k: w.launches - self.start[k][0] for k, w in self.wrappers.items()}
 
     def by_variant(self):
-        return {k: {v: n - self.start[k][1][v] for v, n in w.launches_by_variant.items()}
+        return {k: {v: n - self.start[k][1][v]
+                    for v, n in getattr(w, "launches_by_variant", {}).items()}
                 for k, w in self.wrappers.items()}

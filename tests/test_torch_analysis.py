@@ -123,6 +123,16 @@ def test_kernels_count_their_own_work_on_meta_tensors():
     assert y.shape == x.shape and tuple(state.shape) == (1, 64, 64, 128)
     assert (acct.flops, acct.traffic_bytes) == k2.work(x.shape, 1, 128)
     assert k1.flash_attention_hmajor.launches == 0 and k2.ssd_scan_hmajor.launches == 0
+    # K4 counts its bytes and its SiLU's logistic, and no FLOPs (elementwise)
+    from repro_torch.kernels import causal_conv as k4
+    parts = [tuple(torch.empty(shape, dtype=torch.bfloat16, device="meta")
+                   for shape in ((4, 1024, C), (4, C), (C,))) for C in (4096, 128, 128)]
+    ys, acct = account(lambda: k4.causal_conv_silu(parts))
+    assert [tuple(y.shape) for y in ys] == [(4, 1024, C) for C in (4096, 128, 128)]
+    assert (acct.flops, acct.traffic_bytes) == (0.0, k4.work((4, 1024, 4352), 4)[1])
+    assert acct.transcendentals == 4 * 1024 * 4352
+    assert acct.kernel_calls == {"repro_torch::causal_conv_silu": 1}
+    assert k4.causal_conv_silu.launches == 0
 
 
 MESH_CASES = r"""

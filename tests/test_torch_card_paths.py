@@ -5,8 +5,8 @@ suite, the examples, and cells on a one-device mesh.
 * Serve (``launch.serve.run``, batch 4, 32 new tokens, seeded random bf16
   weights), one case per family, each cut in depth as ``FAMILIES`` says:
   the kernel launches by kernel and variant (K1 once per self-attention
-  layer of the prefill, the encoder's non-causal; K2 once per Mamba-2
-  layer; neither in decode), every K1 call a self-attention one, the decode
+  layer of the prefill, the encoder's non-causal; K2 and K4 once per
+  Mamba-2 layer; none in decode), every K1 call a self-attention one, the decode
   positions, the tokens and finite logits.  At full width the reference's
   init gives attention scores of std ~180, so two paths that differ only in
   rounding drift apart over many layers: the model-level checks (prefill
@@ -23,6 +23,9 @@ suite, the examples, and cells on a one-device mesh.
   ``benchmarks.run``'s duet table and the quickstart example.
 * The serve_batch and train_lm examples on the card.
 * ``launch.cells.build_cell`` on a 1x1 mesh on the card at full width.
+* K4 in a reduced mamba2 and a reduced granite prefill: one launch per
+  Mamba-2 layer, each ``conv`` span noting it, the logits held to the plain
+  route's.
 
 The numbers that are host-only and seeded (the command line's synthetic
 and service runs, the paper tables, the watch tool, the benchmark scripts)
@@ -89,8 +92,7 @@ def _consistency(lm, prompts, nxt, kv_dtype, inputs):
 
 
 def _assert_flash_close_to_dot(lm, tokens, mode, inputs):
-    """Flash logits against dot logits by the measures of
-    tests/test_integration_extras.py:33-37."""
+    """Flash logits against dot logits (``_assert_logits_close``)."""
     cfg = lm.cfg
     flash = lm.forward(tokens, mode=mode, **inputs)["logits"][..., :cfg.vocab_size].float()
     lm.cfg = dataclasses.replace(cfg, attention_impl="dot")
@@ -98,10 +100,17 @@ def _assert_flash_close_to_dot(lm, tokens, mode, inputs):
         dot = lm.forward(tokens, mode=mode, **inputs)["logits"][..., :cfg.vocab_size].float()
     finally:
         lm.cfg = cfg
-    diff = (flash - dot).abs()
-    got = dict(mean_abs=float(diff.mean()), frac_lt_025=float((diff < 0.25).float().mean()),
-               argmax_agree=float((flash.argmax(-1) == dot.argmax(-1)).float().mean()))
-    assert got["mean_abs"] < 0.05 and got["frac_lt_025"] > 0.99 and got["argmax_agree"] > 0.95, got
+    _assert_logits_close(flash, dot)
+
+
+def _assert_logits_close(got, want):
+    """bf16 logits of two routes by the measures of
+    tests/test_integration_extras.py:33-37."""
+    diff = (got - want).abs()
+    close = dict(mean_abs=float(diff.mean()), frac_lt_025=float((diff < 0.25).float().mean()),
+                 argmax_agree=float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+    assert (close["mean_abs"] < 0.05 and close["frac_lt_025"] > 0.99
+            and close["argmax_agree"] > 0.95), close
 
 
 def _one_layer(cfg):
@@ -194,6 +203,7 @@ def test_a_family_serves_on_card(arch, monkeypatch):
         assert total["K2"] == by_variant["K2"][k2v] == want_k2
     else:
         assert total["K2"] == 0
+    assert total["K4"] == want_k2       # x, B and C of each Mamba-2 layer in one launch
     S = res.prompts.shape[1] + cfg.num_image_tokens
     assert len(calls) == want_k1
     assert all(q[1] == k[1] for _, q, k in calls)               # no cross-attention takes K1
@@ -754,3 +764,40 @@ def test_a_cell_runs_on_a_one_device_mesh_on_card(arch, shape, batch, overrides,
                       **kw)
     _, meta_acct = account(meta.run)
     assert acct.flops > 0 and acct.flops == meta_acct.flops
+
+
+# ---------------------------------------------------------------------- K4
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "granite-4.0-h-small"])
+def test_a_reduced_prefill_takes_k4_per_mamba_layer(arch, monkeypatch):
+    """A reduced bf16 prefill (batch 4, 1,000 positions: runs of rows cut
+    ragged) launches K4 once per Mamba-2 layer (x, B and C in one launch)
+    and every ``conv`` span notes ``impl="k4"``; its logits are held to the
+    plain route's (``k4_refusal`` forced) by the measures of flash against
+    dot."""
+    skip_without_card("K4 is CUDA C++ with no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import scope
+    from repro_torch.models import ssm
+    from repro_torch.models.lm import LM
+    cfg = get_config(arch).reduced()
+    n_mamba = sum(not (cfg.hybrid and cfg.is_attn_layer(i)) for i in range(cfg.num_layers))
+    lm = LM(cfg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 1_000), generator=g, device="cuda")
+    launches = Launches()
+    scope.clear()
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU]):
+        k4 = lm.forward(prompts, mode="prefill")["logits"][..., :cfg.vocab_size].float()
+    spans = scope.spans()
+    scope.clear()
+    assert launches.total()["K4"] == n_mamba
+    conv = [sp.attrs for sp in spans if sp.tag == "conv"]
+    assert conv == [{"impl": "k4"}] * n_mamba
+    monkeypatch.setattr(ssm, "k4_refusal", lambda parts: "forced")
+    with torch.inference_mode():
+        plain = lm.forward(prompts, mode="prefill")["logits"][..., :cfg.vocab_size].float()
+    assert launches.total()["K4"] == n_mamba
+    assert torch.isfinite(k4).all()
+    _assert_logits_close(k4, plain)

@@ -17,7 +17,8 @@ On the card (``-m cuda``): graph and eager decode serve the same tokens over
 replays; ``torch.cuda.memory_allocated()`` returns to its value from before
 the batch once its cache is freed; a held MoE's batch over the slots' tokens
 runs eagerly; a capture under the profiler notes its spans' device counts
-after the step; K3 with a device length at lengths
+after the step; a capture with less than ``CAPTURE_HEADROOM`` free empties
+the allocator's cache first; K3 with a device length at lengths
 that leave trailing splits empty matches its plain version.
 """
 import gc
@@ -246,6 +247,27 @@ def test_graph_and_eager_serve_the_same_tokens(arch, monkeypatch):
     monkeypatch.setattr(dg, "decode_graph_refusal", lambda *a: "eager on purpose")
     eager = _serve(lm, cache, tok).cpu()
     assert torch.equal(graph, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("free,emptied", [(0, 1), (dg.CAPTURE_HEADROOM, 0)])
+def test_a_capture_short_of_memory_empties_the_cache_first(free, emptied, monkeypatch):
+    """A capture that finds less than ``CAPTURE_HEADROOM`` free on the device
+    (here reported so) hands the allocator's cached blocks back before it
+    starts, once; one with that much free does not; both serve the tokens of
+    the eager steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA graph captures CUDA work")
+    lm, cache, tok = _batch("mamba2-1.3b", device="cuda")
+    _serve(lm, _clone(cache), tok, steps=1)         # the model's first step
+    calls, empty = [], torch.cuda.empty_cache
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (free, 80 << 30))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: (calls.append(1), empty())[1])
+    graph = _serve(lm, _clone(cache), tok).cpu()
+    monkeypatch.undo()
+    assert len(calls) == emptied
+    monkeypatch.setattr(dg, "decode_graph_refusal", lambda *a: "eager on purpose")
+    assert torch.equal(graph, _serve(lm, cache, tok).cpu())
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""K1, K2 and K3 on the card against their plain versions.
+"""K1, K2, K3 and K4 on the card against their plain versions.
 
 Every f32 case has a bf16 twin: bf16 runs a tensor-core variant wherever
 ``k1_variant`` / ``k2_variant`` choose it (K1: "wg" at hd 64 and 128, "tc"
@@ -19,6 +19,15 @@ peaked as the serve model's init makes them) and at the other head dims,
 query groups and types it instantiates; a served decode step launches it
 once or twice per layer.
 
+K4 (the Mamba-2 prefill's causal conv and SiLU) is held against its plain
+version computed in f32 and rounded once to bf16 (atol = rtol = 1e-2: at
+most one bf16 step apart) and against the plain version in bf16 (3e-2:
+that version rounds after every product and sum), at the longdoc shapes of
+mamba2-1.3b and granite-4.0-h-small (granite's x is 2 GiB, so byte offsets
+pass 2^31), the short cell's, ``serve_batch``'s reduced widths, sequences
+that end inside a run of rows or before the conv's first W - 1 rows, and
+every width it instantiates; one launch a call.
+
 This file needs no jax, so that it also runs on a machine with a CUDA card
 and no jax:
 
@@ -32,7 +41,8 @@ torch = pytest.importorskip("torch")
 
 import torch.nn.functional as F  # noqa: E402
 
-from _torch_card import assert_rows_within, skip_without_card  # noqa: E402
+from _torch_card import agreement, assert_rows_within, skip_without_card  # noqa: E402
+from repro_torch.kernels import causal_conv as cc  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ks  # noqa: E402
@@ -538,3 +548,117 @@ def test_a_served_internlm2_decode_step_launches_k3_per_layer():
     assert sorted(s.parent for s in k3) == sorted(s.id for s in cores)
     assert all(s.attrs["bytes"] == 2 * B * (S + 1) * cfg.num_kv_heads * cfg.head_dim * 2
                for s in k3)
+
+
+# ---------------------------------------------------------------------- K4
+K4_CASES = [   # (B, S, channels of x, B and C), conv width
+    ((4, 32_768, (4_096, 128, 128)), 4),    # mamba2-1.3b.longdoc
+    ((4, 32_768, (8_192, 128, 128)), 4),    # granite-4.0-h-small.longdoc: x 2 GiB
+    ((64, 1_024, (4_096, 128, 128)), 4),    # mamba2-1.3b.short
+    ((4, 32, (128, 16, 16)), 4),            # serve_batch's reduced mamba2 and Jamba
+    ((2, 1_000, (256, 16, 16)), 4),         # S not a multiple of the 64-row run
+    ((2, 1_003, (256, 16, 16)), 4),         # the last run not a multiple of the 8-row unroll
+    ((3, 2, (64, 16, 16)), 4),              # S < W - 1
+    ((3, 1, (64,)), 4),
+    ((2, 100, (64, 8)), 3),
+    ((2, 70, (24, 8, 8)), 2),
+    ((2, 50, (32,)), 1),
+]
+
+
+def _k4_inputs(B, S, channels, W, seed):
+    """bf16 x at unit scale, weights of std W^-0.5 and biases of 0.1 (the
+    benchmark's draw), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(torch.bfloat16)
+    return [(draw(B, S, C), draw(W, C, std=W ** -0.5), draw(C, std=0.1)) for C in channels]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,W", K4_CASES,
+                         ids=[f"{c[0][0]}x{c[0][1]}x{'+'.join(map(str, c[0][2]))}-w{c[1]}"
+                              for c in K4_CASES])
+def test_k4_matches_plain_on_card(shape, W):
+    skip_without_card("K4 is CUDA C++ with no CPU mode")
+    B, S, channels = shape
+    parts = _k4_inputs(B, S, channels, W, seed=S + W)
+    before = cc.causal_conv_silu.launches
+    ys = cc.causal_conv_silu(parts)
+    torch.cuda.synchronize()
+    assert cc.causal_conv_silu.launches == before + 1
+    for (x, w, b), y in zip(parts, ys):
+        assert y.dtype == torch.bfloat16 and y.shape == x.shape
+        for i in range(B):       # a sequence at a time: granite's f32 x alone is 4 GiB
+            xi, yi = x[i:i + 1], y[i:i + 1].float()
+            once = F.silu(cc.causal_conv_plain(xi.float(), w.float(), b.float()))
+            assert agreement(yi, once.to(torch.bfloat16).float(), 1e-2)[2] == 0
+            del once
+            plain = cc.causal_conv_silu_plain(xi, w, b).float()
+            assert agreement(yi, plain, 3e-2)[2] == 0
+
+
+@pytest.mark.cuda
+def test_k4_runs_on_the_current_stream():
+    """A launch under another stream runs on that stream: its output, read
+    after that stream alone is synchronised, is the default stream's."""
+    skip_without_card("K4 is CUDA C++ with no CPU mode")
+    parts = _k4_inputs(4, 4_096, (4_096, 128, 128), 4, seed=5)
+    want = cc.causal_conv_silu(parts)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = cc.causal_conv_silu(parts)
+    side.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+K4_MESH = r"""
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate
+from repro_torch.kernels import causal_conv as cc
+from repro_torch.launch.mesh import fake_process_group
+
+with fake_process_group(1):
+    mesh = init_device_mesh("cuda", (1,))
+    x, w, b = (torch.zeros(s, dtype=torch.bfloat16, device="cuda")
+               for s in ((2, 5, 16), (4, 16), (16,)))
+    try:
+        cc.causal_conv_silu([(DTensor.from_local(x, mesh, [Replicate()]), w, b)])
+    except ValueError as e:
+        print(e)
+"""
+
+
+@pytest.mark.cuda
+def test_k4_raises_on_what_it_does_not_take():
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    skip_without_card("K4 is CUDA C++ with no CPU mode")
+    x, w, b = _k4_inputs(2, 5, (16,), 4, seed=0)[0]
+    before = cc.causal_conv_silu.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        cc.causal_conv_silu([(x.float(), w.float(), b.float())])
+    with pytest.raises(ValueError, match="bfloat16"):
+        cc.causal_conv_silu([(x, w.float(), b)])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cc.causal_conv_silu([(x[..., :12].contiguous(), w[:, :12].contiguous(), b[:12])])
+    with pytest.raises(ValueError, match="width"):
+        cc.causal_conv_silu([(x, torch.cat([w, w[:1]]), b)])
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(2, 5, 32, dtype=torch.bfloat16, device="cuda")
+        cc.causal_conv_silu([(wide[..., :16], w, b)])
+    with pytest.raises(ValueError, match="one device"):
+        cc.causal_conv_silu([(x, w.cpu(), b)])
+    with pytest.raises(RuntimeError, match="no backward"):
+        cc.causal_conv_silu([(x.float().requires_grad_(), w.float(), b.float())])
+    assert cc.causal_conv_silu.launches == before
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    res = subprocess.run([sys.executable, "-c", K4_MESH], env=dict(os.environ, PYTHONPATH=src),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().split("\n")[-1] == "K4 takes plain tensors, not DTensors"
